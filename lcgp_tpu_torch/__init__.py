@@ -1,0 +1,14 @@
+"""lcgp_tpu_torch — Latent Component Gaussian Processes in PyTorch.
+
+The PyTorch/CUDA port of ``lcgp_tpu``.  Implemented so far: the full-path
+(``submethod='full'``), float64 (``precision='high'``), Matérn 3/2 serving
+path — construction, ``loss()`` at given parameters, ``predict`` (with
+``batch_size`` and ``return_fullcov``) and npz ``save``/``load`` compatible
+with ``lcgp_tpu.LCGP``.  On CUDA the Gram builds run the hand-written kernel
+``csrc/matern32_gram.cu``, compiled on first use.
+"""
+from . import config  # noqa: F401  (switches TF32 off)
+from .models.lcgp import LCGP
+from .ops.matern import Matern32
+
+__all__ = ["LCGP", "Matern32"]

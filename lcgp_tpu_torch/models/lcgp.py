@@ -1,0 +1,412 @@
+"""The LCGP model class, full-path serving shell (counterpart of
+``lcgp_tpu/models/lcgp.py``).
+
+Same constructor surface, parameter accessors, ``loss``/``predict`` and npz
+``save``/``load`` format as ``lcgp_tpu.LCGP``, for ``submethod='full'``,
+``precision='high'`` (float64) and ``kernel='matern32'``.  NumPy or tensors
+in, float64 tensors on ``device`` out.  What is not ported yet raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
+"""
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import dtype_for, jitter_for
+from . import basis as basis_mod
+from . import likelihood as lik
+from . import params as P
+from . import predict as pred
+from . import transforms as tx
+
+_F64 = torch.float64
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            "LCGP(device='cuda'): CUDA is not available.  Pass device='cpu' "
+            "to run the plain PyTorch path on the CPU.")
+    return device
+
+
+class LCGP:
+    """Latent Component Gaussian Process (full path) in PyTorch."""
+
+    def __init__(self,
+                 y=None,
+                 x=None,
+                 q: Optional[int] = None,
+                 var_threshold: Optional[float] = None,
+                 diag_error_structure: Optional[list] = None,
+                 parameter_clamp_flag: bool = False,
+                 robust_mean: bool = True,
+                 submethod: str = 'full',
+                 rep_standardize_ybar: bool = True,
+                 verbose: bool = False,
+                 precision: str = 'high',
+                 q_chunk: Optional[int] = None,
+                 kernel: str = 'matern32',
+                 inducing=None,
+                 n_chunk: Optional[int] = None,
+                 device='cuda'):
+        if y is None or x is None:
+            raise ValueError('LCGP requires both y (p, n) and x (n, d).')
+        if submethod not in ('full', 'rep'):
+            raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
+        if submethod == 'rep':
+            raise NotImplementedError(
+                "submethod='rep' is not ported yet (ROADMAP.md Queue 1 item 10)")
+        if precision != 'auto':
+            dtype_for(precision)      # ValueError for an unknown mode
+        if precision != 'high':
+            raise NotImplementedError(
+                f"precision={precision!r} is not ported yet; only 'high' "
+                "(ROADMAP.md Queue 1 item 11)")
+        if kernel not in ('matern32', 'matern52', 'rbf'):
+            raise ValueError("kernel must be 'matern32', 'matern52', or 'rbf'")
+        if kernel != 'matern32':
+            raise NotImplementedError(
+                f"kernel={kernel!r} is not ported yet (ROADMAP.md Queue 1 "
+                "item 13)")
+        if inducing is not None:
+            raise NotImplementedError(
+                "inducing= (FITC) is not ported yet (ROADMAP.md Queue 1 "
+                "item 15)")
+
+        self.device = _resolve_device(device)
+        self.verbose = verbose
+        self.robust_mean = robust_mean
+        self.rep_standardize_ybar = rep_standardize_ybar
+        self.parameter_clamp_flag = parameter_clamp_flag
+        self.precision = precision
+        self._jitter = jitter_for(precision)
+        self._q_chunk_arg = q_chunk
+        self.q_chunk = q_chunk
+        self._n_chunk_arg = n_chunk
+        self.kernel = kernel
+        self.method = 'LCGP'
+        self.submethod = submethod
+
+        self.x = self._verify_data_types(x)
+        self.y = self._verify_data_types(y)
+
+        if (q is not None) and (var_threshold is not None):
+            raise ValueError('Include only q or var_threshold but not both.')
+        self.q = q
+        self.var_threshold = var_threshold
+
+        self.n, self.d, self.p = self.verify_dim(self.y, self.x)
+
+        self.x_orig = self.x
+        self.y_orig = self.y
+
+        self.x, self.x_min, self.x_max = tx.standardize_x(self.x)
+        self.y, self.ymean, self.ystd = tx.standardize_y(self.y,
+                                                         self.robust_mean)
+
+        # SVD basis on the host; q is resolved there, shapes fixed after
+        b = basis_mod.init_phi(self.y.cpu().numpy(), q=self.q,
+                               var_threshold=var_threshold)
+        self.g = self._tensor(b.g)
+        self.phi = self._tensor(b.phi)
+        self.diag_D = self._tensor(b.diag_D)
+        self.q = b.q
+        self.g_var = self._tensor(b.g_var)
+        if self.verbose:
+            print('variance of latent g:', b.g_var)
+
+        if self._q_chunk_arg is None:
+            self.q_chunk = self._auto_q_chunk(int(self.q), int(self.n),
+                                              self.device)
+        elif self._q_chunk_arg <= 0:
+            self.q_chunk = None
+
+        if diag_error_structure is None:
+            self.diag_error_structure = [1] * int(self.p)
+        else:
+            self.diag_error_structure = list(diag_error_structure)
+        self.verify_error_structure(self.diag_error_structure, self.y)
+        self._sigma_map = P.sigma_index_map(self.diag_error_structure,
+                                            self.device)
+
+        self._free = P.init_values(self.x.cpu().numpy(), self.y.cpu().numpy(),
+                                   self.q, self.diag_error_structure,
+                                   self.device)
+        self._params_version = 0
+        self._aux = None
+        self._aux_version = -1
+        self._data = lik.FullData(xs=self.x, ys=self.y, phi=self.phi,
+                                  diag_D=self.diag_D,
+                                  sigma_map=self._sigma_map)
+
+    # ------------------------------------------------------------------
+    # Display
+    # ------------------------------------------------------------------
+    def __repr__(self):
+        lLmb, lLmb0, lsigma2s, lnugGPs = self.get_param()
+
+        def fmt(a):
+            return np.array2string(a.cpu().numpy(), precision=4, threshold=8)
+
+        params = (f"\t\tLatent GP lengthscale (lLmb):\t{fmt(lLmb)}\n"
+                  f"\t\tLatent GP scale (lLmb0):\t{fmt(lLmb0)}\n"
+                  f"\t\tDiagonal error log-variance:\t{fmt(lsigma2s)}\n"
+                  f"\t\tLatent GP nugget scale:\t{fmt(lnugGPs)}")
+        return ('LCGP(\n'
+                f'\tsubmethod:\t{self.submethod}\n'
+                f'\toutput dimension:\t{int(self.p)}\n'
+                f'\tnumber of latent components:\t{int(self.q)}\n'
+                f'\tparameter_clamping:\t{self.parameter_clamp_flag}\n'
+                f'\trobust_standardization:\t{self.robust_mean}\n'
+                f'\tdiagonal_error structure:\t{self.diag_error_structure}\n'
+                f'\tparameters:\t\n{params}\n)')
+
+    # ------------------------------------------------------------------
+    # Utils: type checks, dims, transforms
+    # ------------------------------------------------------------------
+    def _tensor(self, a) -> torch.Tensor:
+        # a copy: arrays from JAX or np.load may be read-only
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=_F64,
+                               device=self.device)
+
+    def _param(self, v) -> torch.Tensor:
+        # C-contiguous: the CUDA kernel takes the (q, d) lengthscales as a
+        # dense row-major block, and NumPy arrays may arrive Fortran-ordered
+        return torch.as_tensor(v, dtype=_F64, device=self.device).contiguous()
+
+    def _verify_data_types(self, t) -> torch.Tensor:
+        if isinstance(t, torch.Tensor):
+            t = t.to(device=self.device, dtype=_F64)
+        else:
+            t = self._tensor(t)
+        if t.ndim < 2:
+            t = t[:, None]
+        return t.contiguous()
+
+    # The checks below raise AssertionError, as lcgp_tpu's asserts do, but
+    # explicitly so that they survive python -O.
+    def verify_dim(self, y, x):
+        p, ny = y.shape[0], y.shape[1]
+        nx, d = x.shape[0], x.shape[1]
+        if ny != nx:
+            raise AssertionError('Number of inputs (x) differs from number of '
+                                 'outputs (y), y.shape[1] != x.shape[0]')
+        return int(nx), int(d), int(p)
+
+    @staticmethod
+    def verify_error_structure(diag_error_structure, y):
+        if sum(diag_error_structure) != y.shape[0]:
+            raise AssertionError(
+                'Sum of error_structure should equal the output dimension.')
+        if not all(g > 0 for g in diag_error_structure):
+            raise AssertionError('Error structure groups must be positive.')
+
+    def tx_x(self, xs):
+        return xs * (self.x_max - self.x_min) + self.x_min
+
+    def tx_y(self, ys):
+        """Inverse y-standardization."""
+        return ys * self.ystd + self.ymean
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+    @property
+    def free(self) -> P.FreeParams:
+        """The unconstrained parameters (the source of truth)."""
+        return self._free
+
+    @free.setter
+    def free(self, value: P.FreeParams):
+        self._free = P.FreeParams(*(self._param(v) for v in value))
+        self._params_version += 1
+
+    @property
+    def lLmb(self):
+        return P.constrain(self._free)[0]
+
+    @property
+    def lLmb0(self):
+        return P.constrain(self._free)[1]
+
+    @property
+    def lsigma2s(self):
+        return P.constrain(self._free)[2]
+
+    @property
+    def lnugGPs(self):
+        return P.constrain(self._free)[3]
+
+    def get_param(self):
+        """(lLmb, lLmb0, per-output lsigma2s, lnugGPs) — grouped error
+        log-variances expanded to (p,)."""
+        lLmb, lLmb0, lsig_g, lnug = P.constrain(self._free)
+        return lLmb, lLmb0, P.expand_sigma(lsig_g, self._sigma_map), lnug
+
+    def set_params(self, lLmb=None, lLmb0=None, lsigma2s=None, lnugGPs=None):
+        """Assign constrained parameter values (grouped lsigma2s)."""
+        cur = P.constrain(self._free)
+        new = (lLmb, lLmb0, lsigma2s, lnugGPs)
+        vals = [c if v is None else self._param(v) for c, v in zip(cur, new)]
+        self._free = P.unconstrain(*vals)
+        self._params_version += 1
+
+    # ------------------------------------------------------------------
+    # Loss and fit
+    # ------------------------------------------------------------------
+    def loss(self) -> torch.Tensor:
+        """Negative log marginal posterior at the current parameters."""
+        return lik.neglpost_full(self._free, self._data, jitter=self._jitter,
+                                 q_chunk=self.q_chunk, kernel=self.kernel)
+
+    def fit(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fit() is not ported yet: the loss gradient and the scipy "
+            "L-BFGS-B fit are ROADMAP.md Queue 1 items 5-6")
+
+    # Working-set fraction of the device memory the q-chunk planner sizes
+    # against, and the budget where there is no device to ask (the CPU)
+    _MEM_BUDGET_FRACTION = 10e9 / 15.75e9
+    _MEM_BUDGET_DEFAULT = 10e9
+
+    @classmethod
+    def _mem_budget_bytes(cls, device: torch.device) -> float:
+        if device.type == 'cuda':
+            free, _ = torch.cuda.mem_get_info(device)
+            return cls._MEM_BUDGET_FRACTION * float(free)
+        return cls._MEM_BUDGET_DEFAULT
+
+    @classmethod
+    def _auto_q_chunk(cls, q: int, n: int, device: torch.device):
+        """Component-chunk size so the working set fits device memory, with
+        the JAX package's peak model of ~8 transient (qc, n, n) stacks plus
+        a (q, n, n) term: (8 qc + q) n^2 * 8 bytes.  None = unchunked."""
+        budget = cls._mem_budget_bytes(device)
+
+        def peak(qc):
+            return (8 * qc + q) * n * n * 8
+
+        if peak(q) <= budget:
+            return None
+        for qc in range(q - 1, 0, -1):
+            if q % qc == 0 and peak(qc) <= budget:
+                return qc
+        return 1
+
+    # ------------------------------------------------------------------
+    # Prediction
+    # ------------------------------------------------------------------
+    def _ensure_aux(self) -> pred.FullAux:
+        if self._aux is None or self._aux_version != self._params_version:
+            self._aux = None   # free the old factor before building the new
+            self._aux = pred.compute_aux_full(
+                self._free, self._data, jitter=self._jitter,
+                kernel=self.kernel, q_chunk=self.q_chunk)
+            self._aux_version = self._params_version
+        return self._aux
+
+    def compute_aux_predictive_quantities(self):
+        self._aux = None
+        self._ensure_aux()
+
+    def predict(self, x0, return_fullcov: bool = False,
+                batch_size: Optional[int] = None):
+        """Predict at x0 (n0, d) -> tuple of (p, n0) tensors.
+
+        batch_size: evaluate test points in fixed-shape chunks of this many
+        (the last chunk is padded by repeating its final row); None predicts
+        in one shot.  Not combined with return_fullcov.
+        """
+        x0 = self._verify_data_types(x0)
+        if batch_size is None:
+            return self.predict_full(x0=x0, return_fullcov=return_fullcov)
+        if return_fullcov:
+            raise ValueError('batch_size is not supported with '
+                             'return_fullcov=True.')
+        n0 = x0.shape[0]
+        chunks = []
+        for s in range(0, n0, batch_size):
+            blk = x0[s:s + batch_size]
+            pad = batch_size - blk.shape[0]
+            if pad:
+                blk = torch.cat([blk, blk[-1:].repeat(pad, 1)])
+            out = self.predict_full(x0=blk, return_fullcov=False)
+            chunks.append([o[:, :batch_size - pad] if pad else o
+                           for o in out])
+        return tuple(torch.cat([c[i] for c in chunks], dim=1)
+                     for i in range(3))
+
+    def _standardize_x0(self, x0):
+        x0 = self._verify_data_types(x0)
+        return ((x0 - self.x_min) / (self.x_max - self.x_min)).contiguous()
+
+    def predict_full(self, x0, return_fullcov: bool = False):
+        aux = self._ensure_aux()
+        x0s = self._standardize_x0(x0)
+        ghat, gvar = pred.predict_full_core(
+            self._free, self._data, aux, x0s, jitter=self._jitter,
+            kernel=self.kernel, q_chunk=self.q_chunk)
+        self.ghat, self.gvar = ghat, gvar
+        ypred, ypredvar, yconfvar = pred.recombine_full(
+            self._free, self._data, ghat, gvar, self.ymean, self.ystd)
+        if return_fullcov:
+            yfullpredcov = pred.fullcov_full(self._free, self._data, gvar,
+                                             self.ystd)
+            return ypred, ypredvar, yconfvar, yfullpredcov
+        return ypred, ypredvar, yconfvar
+
+    # ------------------------------------------------------------------
+    # Persistence: the npz format of lcgp_tpu.LCGP.save/load
+    # ------------------------------------------------------------------
+    def save(self, path):
+        lLmb, lLmb0, lsig_g, lnug = P.constrain(self._free)
+        cfg = dict(q=int(self.q), var_threshold=self.var_threshold,
+                   diag_error_structure=list(self.diag_error_structure),
+                   parameter_clamp_flag=self.parameter_clamp_flag,
+                   robust_mean=self.robust_mean, submethod=self.submethod,
+                   rep_standardize_ybar=self.rep_standardize_ybar,
+                   precision=self.precision, kernel=self.kernel,
+                   q_chunk=self.q_chunk, n_chunk=self._n_chunk_arg)
+
+        def host(t):
+            return t.cpu().numpy()
+
+        np.savez(path,
+                 config=json.dumps(cfg),
+                 x_orig=host(self.x_orig),
+                 y_orig=host(self.y_orig),
+                 # free (unconstrained) values are the source of truth so the
+                 # roundtrip is exact; constrained values stored for inspection
+                 free_lLmb=host(self._free.lLmb),
+                 free_lLmb0=host(self._free.lLmb0),
+                 free_lsigma2s=host(self._free.lsigma2s),
+                 free_lnugGPs=host(self._free.lnugGPs),
+                 lLmb=host(lLmb), lLmb0=host(lLmb0),
+                 lsigma2s=host(lsig_g), lnugGPs=host(lnug))
+
+    @classmethod
+    def load(cls, path, device='cuda'):
+        with np.load(path, allow_pickle=False) as npz:
+            z = dict(npz)
+        cfg = json.loads(str(z['config']))
+        if 'inducing_z_std' in z:
+            raise NotImplementedError(
+                "loading an inducing-point (FITC) model is not ported yet "
+                "(ROADMAP.md Queue 1 item 15)")
+        model = cls(y=z['y_orig'], x=z['x_orig'],
+                    q=cfg['q'], var_threshold=None,
+                    diag_error_structure=cfg['diag_error_structure'],
+                    parameter_clamp_flag=cfg['parameter_clamp_flag'],
+                    robust_mean=cfg['robust_mean'], submethod=cfg['submethod'],
+                    rep_standardize_ybar=cfg['rep_standardize_ybar'],
+                    precision=cfg.get('precision', 'high'),
+                    kernel=cfg.get('kernel', 'matern32'),
+                    q_chunk=cfg.get('q_chunk'), device=device)
+        model.free = P.FreeParams(z['free_lLmb'], z['free_lLmb0'],
+                                  z['free_lsigma2s'], z['free_lnugGPs'])
+        return model

@@ -1,0 +1,101 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``lcgp_tpu_torch/csrc/`` are compiled with ``nvcc`` into
+one shared library with a plain C interface and loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library is built on first
+use into ``build/lcgp_tpu_torch/<hash of sources and flags>/`` at the root
+of the checkout and reused while the sources are unchanged.  Nothing here
+runs at import time: the CPU-only test suite imports every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_ROOT = _PKG_DIR.parent / "build" / "lcgp_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# (x1, x2, inv_l, amp, nug, row_scale, diag_vec, same, q, n1, n2, d,
+#  out, c0_out, stream) -> cudaError_t
+_GRAM_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+
+
+class KernelLibrary:
+    """The loaded shared library plus how it was built."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self.lib = ctypes.CDLL(str(path))
+        for name in ("lcgp_matern32_gram_f64", "lcgp_matern32_gram_f32"):
+            fn = getattr(self.lib, name)
+            fn.argtypes = _GRAM_ARGTYPES
+            fn.restype = ctypes.c_int
+
+
+_LIBRARY: KernelLibrary | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels of lcgp_tpu_torch "
+                       "are built from source on first use and need the "
+                       "CUDA toolkit (nvcc on PATH or /usr/local/cuda)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> KernelLibrary:
+    """Compile (if needed) and load the kernel library; cached per process."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "liblcgp_kernels.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+        # build into a private name, then rename: concurrent builds never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{log}")
+        os.replace(tmp, lib_path)
+    _LIBRARY = KernelLibrary(lib_path, time.perf_counter() - t0, log)
+    return _LIBRARY

@@ -1,0 +1,50 @@
+"""Gram-stack construction (counterpart of ``lcgp_tpu/ops/gram.py``).
+
+Only the Matérn 3/2 kind is ported.  On CUDA, :func:`gram_factor_target`
+runs the K1 kernel with its epilogue, so the factorization target
+``B = row_scale_k * C_k + diag(diag_vec_k)`` is written in one pass and C is
+never written separately.  On the CPU it runs the plain version and the
+epilogue as tensor ops.
+"""
+from __future__ import annotations
+
+from . import linalg
+from .matern import launch_matern32, matern32_gram
+
+
+def _check_kind(kind: str):
+    if kind in ('matern52', 'rbf'):
+        raise NotImplementedError(
+            f"kernel {kind!r} is not ported yet (ROADMAP.md Queue 1 item 13)")
+    if kind != 'matern32':
+        raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def gram_stack(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
+               kind: str = 'matern32', want_c0: bool = False):
+    """Batched (q, n1, n2) Gram stack; ``(stack, c0)`` when ``want_c0``."""
+    _check_kind(kind)
+    return matern32_gram(x1, x2, lengthscales, amplitudes, nuggets, same=same,
+                         want_c0=want_c0)
+
+
+def gram_factor_target(x, lengthscales, amplitudes, nuggets, *, row_scale,
+                       diag_vec, kind: str = 'matern32',
+                       want_c0: bool = False):
+    """Factorization target B = row_scale_k * C_k(x, x) + diag(diag_vec_k).
+
+    row_scale (q,), diag_vec (q, n).  ``want_c0=True`` returns (B, C0)."""
+    _check_kind(kind)
+    if x.device.type != 'cpu':
+        B, c0 = launch_matern32(x, x, lengthscales, amplitudes, nuggets,
+                                same=True, want_c0=want_c0,
+                                row_scale=row_scale, diag_vec=diag_vec)
+        return (B, c0) if want_c0 else B
+    C = matern32_gram(x, x, lengthscales, amplitudes, nuggets, same=True,
+                      want_c0=want_c0)
+    c0 = None
+    if want_c0:
+        C, c0 = C
+    B = linalg.add_diag(row_scale.to(C.dtype)[:, None, None] * C,
+                        diag_vec.to(C.dtype))
+    return (B, c0) if want_c0 else B

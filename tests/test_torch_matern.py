@@ -1,0 +1,146 @@
+"""lcgp_tpu_torch.ops.matern / ops.gram against lcgp_tpu's.
+
+On the CPU the port's Gram functions run the plain PyTorch version, so the
+same NumPy inputs must give the JAX package's stacks to rtol 1e-13 (the
+same arithmetic; the slack covers exp's last-ulp differences).  The K1
+kernel itself is held against the plain version on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lcgp_tpu.ops import gram as JG
+from lcgp_tpu.ops import matern as JM
+from lcgp_tpu_torch.ops import gram as TG
+from lcgp_tpu_torch.ops import matern as TM
+
+TOL = dict(rtol=1e-13, atol=1e-15)
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+
+def _inputs(seed, n1=23, n2=17, d=3, q=4):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (n1, d)), rng.uniform(0, 1, (n2, d)),
+            rng.uniform(0.1, 2.0, (q, d)), rng.uniform(0.5, 3.0, q),
+            rng.uniform(1e-6, 0.1, q))
+
+
+@pytest.mark.parametrize('same', [True, False])
+@pytest.mark.parametrize('want_c0', [True, False])
+def test_gram_matches_jax(same, want_c0):
+    x1, x2, ls, amp, nug = _inputs(0)
+    if same:
+        x2 = x1
+    got = TM.matern32_gram(_t(x1), _t(x2), _t(ls), _t(amp), _t(nug),
+                           same=same, want_c0=want_c0)
+    ref = JM.matern32_gram(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(ls),
+                           jnp.asarray(amp), jnp.asarray(nug), same=same,
+                           want_c0=want_c0)
+    if not want_c0:
+        got, ref = (got,), (ref,)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize('want_c0', [True, False])
+def test_gram_factor_target_matches_jax(want_c0):
+    x, _, ls, amp, nug = _inputs(1, n1=31)
+    rng = np.random.default_rng(11)
+    rs, dv = rng.uniform(0.1, 10, 4), rng.uniform(0.5, 2, (4, 31))
+    got = TG.gram_factor_target(_t(x), _t(ls), _t(amp), _t(nug),
+                                row_scale=_t(rs), diag_vec=_t(dv),
+                                want_c0=want_c0)
+    ref = JG.gram_factor_target(jnp.asarray(x), jnp.asarray(ls),
+                                jnp.asarray(amp), jnp.asarray(nug),
+                                row_scale=jnp.asarray(rs),
+                                diag_vec=jnp.asarray(dv), want_c0=want_c0)
+    if not want_c0:
+        got, ref = (got,), (ref,)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_gram_stack_matches_jax():
+    x1, x2, ls, amp, nug = _inputs(2)
+    got = TG.gram_stack(_t(x1), _t(x2), _t(ls), _t(amp), _t(nug), same=False)
+    ref = JG.gram_stack(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(ls),
+                        jnp.asarray(amp), jnp.asarray(nug), same=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize('kind', ['matern52', 'rbf'])
+def test_unported_kinds_raise(kind):
+    x, _, ls, amp, nug = _inputs(3)
+    with pytest.raises(NotImplementedError, match='Queue 1 item 13'):
+        TG.gram_stack(_t(x), _t(x), _t(ls), _t(amp), _t(nug), same=True,
+                      kind=kind)
+
+
+def test_diag_matches_jax():
+    _, _, _, amp, _ = _inputs(4)
+    x0 = np.zeros((9, 3))
+    np.testing.assert_array_equal(
+        TM.matern32_diag(_t(x0), _t(amp)).numpy(),
+        np.asarray(JM.matern32_diag(jnp.asarray(x0), jnp.asarray(amp))))
+
+
+class TestPublicMatern32:
+    def _args(self):
+        rng = np.random.default_rng(5)
+        return rng.uniform(0, 1, (12, 2)), np.array([0.3, 0.7]), 1.7, 0.05
+
+    @pytest.mark.parametrize('mode', ['identity', 'equal_copy', 'cross',
+                                      'forced_false'])
+    def test_matches_jax(self, mode):
+        x, ls, amp, nug = self._args()
+        tx = _t(x)
+        if mode == 'identity':
+            a1, a2, j1, j2, kw = tx, tx, jnp.asarray(x), None, {}
+            j2 = j1
+        elif mode == 'equal_copy':
+            a1, a2, j1, j2, kw = tx, tx.clone(), x, x.copy(), {}
+        elif mode == 'cross':
+            a1, a2, j1, j2, kw = tx, tx[:7], x, x[:7], {}
+        else:
+            a1, a2, j1, j2, kw = tx, tx, x, x, dict(same=False)
+        got = TM.Matern32(a1, a2, ls, amp, nug, **kw)
+        ref = JM.Matern32(j1, j2, ls, amp, nug, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+    def test_nugget_only_on_same(self):
+        x, ls, amp, nug = self._args()
+        same = TM.Matern32(_t(x), _t(x), ls, amp, nug)
+        cross = TM.Matern32(_t(x), _t(x), ls, amp, nug, same=False)
+        np.testing.assert_allclose(torch.diagonal(same).numpy(), amp,
+                                   rtol=1e-15)
+        np.testing.assert_allclose(torch.diagonal(cross).numpy(),
+                                   amp * (1 - nug / (1 + nug)), rtol=1e-15)
+
+    def test_diag_only(self):
+        x, ls, amp, nug = self._args()
+        out = TM.Matern32(_t(x), _t(x), ls, amp, nug, diag_only=True)
+        np.testing.assert_array_equal(out.numpy(), np.full(12, amp))
+        with pytest.raises(AssertionError):
+            TM.Matern32(_t(x), _t(x) + 0.1, ls, amp, nug, diag_only=True)
+
+
+def test_cpu_call_does_not_launch():
+    x, _, ls, amp, nug = _inputs(6)
+    before = TM.matern32_gram.launches
+    TM.matern32_gram(_t(x), _t(x), _t(ls), _t(amp), _t(nug), same=True)
+    TG.gram_factor_target(_t(x), _t(ls), _t(amp), _t(nug),
+                          row_scale=_t(amp), diag_vec=torch.ones(4, 23,
+                                                                 dtype=torch.float64))
+    assert TM.matern32_gram.launches == before
+
+
+def test_kernel_launcher_refuses_cpu_tensors():
+    x, _, ls, amp, nug = _inputs(7)
+    with pytest.raises(ValueError, match='expected CUDA tensors'):
+        TM.launch_matern32(_t(x), _t(x), _t(ls), _t(amp), _t(nug), same=True)
