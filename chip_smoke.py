@@ -6,17 +6,28 @@
 Phases, each printing its own lines:
 
 1. fail unless CUDA is available; print the card's name and power limit;
-2. build the hand-written CUDA kernel K1 (csrc/matern32_gram.cu) from the
-   sources in this checkout and print the build time;
+2. build the hand-written CUDA kernels K1 (csrc/matern32_gram.cu) and K2
+   (csrc/matern32_gram_vjp.cu) from the sources in this checkout, one nvcc
+   per source, and print the build time;
 3. hold K1 against its plain PyTorch version on the card at the main path's
    shapes (f64 square with epilogue and C0, f64 rectangular), one ragged
-   shape and the f32 instantiation, and time both with CUDA events;
+   shape and the f32 instantiation; hold K2 against its plain version at
+   the loss gradient's shape (fused cotangent from a real B^{-1} and w, and
+   a random symmetric cotangent), at moderate and at the fitted config-4
+   parameters, and at one ragged cross shape; time both kernels against
+   their plain versions with CUDA events;
 4. run the port on the card at n=300 against the NumPy oracle
-   ``tests/oracle.py`` (losses rtol 1e-9, predictions rtol 1e-7);
-5. drive the main path at BASELINE config 4 (n=4096, p=1000, q=20, d=8)
-   with the fitted parameters in ``benchmarks/``: ``loss()``, the
-   predictive aux, four ``predict(batch_size=64)`` requests and one
-   ``return_fullcov`` request, counting K1 launches.
+   ``tests/oracle.py`` (losses rtol 1e-9, predictions rtol 1e-7, the loss
+   gradient against central differences of the oracle rtol 1e-6);
+5. serving at BASELINE config 4 (n=4096, p=1000, q=20, d=8) with the fitted
+   parameters in ``benchmarks/``: ``loss()``, the predictive aux, four
+   ``predict(batch_size=64)`` requests and one ``return_fullcov`` request,
+   counting K1 launches;
+6. training at config 4 from the data-driven init: one loss+grad
+   evaluation timed and checked against the plain kernels' gradient and
+   central differences, then ``fit(method='scipy', maxiter=20)``, counting
+   K2 launches (one per evaluation), the peak memory, the held-out RMSE of
+   the short fit and a profile of one loss+grad evaluation.
 
 The line before the last is a JSON object with the kernel table; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -24,6 +35,7 @@ before those lines are printed.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -37,8 +49,17 @@ ROOT = Path(__file__).resolve().parent
 FITTED = ROOT / "benchmarks" / "fitted_params_large_field_n4096_p1000_q20.npz"
 K1_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram.cu"
 K1_REPLACES = "lcgp_tpu/ops/matern_pallas.py:200 (_fwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:27)"
+K2_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram_vjp.cu"
+K2_REPLACES = "lcgp_tpu/ops/matern_pallas.py:233 (_bwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:86)"
 F64_RTOL, F64_ATOL = 1e-12, 1e-14
 F32_RTOL, F32_ATOL = 1e-4, 1e-6
+# K2's error in each of its sums, as a share of the sum of the magnitudes
+# of the sum's terms (matern32_gram_vjp_scale): the sums cancel near an
+# optimum, so an rtol on the result would say nothing
+VJP_BOUND = 1e-12
+# the port's gradient against the plain kernels' gradient on the card: max
+# error per leaf, as a share of the leaf's max |g|
+GRAD_RTOL = 1e-9
 
 
 def say(msg: str):
@@ -77,13 +98,14 @@ def config4():
     return x[:n], y[:, :n], x[n:], y[:, n:]
 
 
-def time_pair(label, kernel, plain, nbytes):
+def time_pair(label, kernel, plain, nbytes, moved="written"):
     """Kernel and plain times in turns (plain, kernel, kernel, plain), each
-    the median of 7 launches; prints the kernel's write rate."""
+    the median of 7 launches; prints the kernel's rate of the bytes it
+    writes (K1) or reads (K2)."""
     p1, k1, k2, p2 = (cuda_ms(fn) for fn in (plain, kernel, kernel, plain))
     k, p = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"  time {label}: kernel {k:.4f} ms ({nbytes / k / 1e6:.0f} GB/s "
-        f"written), plain {p:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
+        f"{moved}), plain {p:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
         f"{p1:.4f}/{p2:.4f})")
     return k, p
 
@@ -265,6 +287,209 @@ def phase_fitted_gram(dev, xs, free_np):
     torch.cuda.empty_cache()
 
 
+def loss_operands(m, free):
+    """(lengthscales, amplitudes, nuggets, D, a) as ``neglpost_full`` forms
+    them at the free parameters, with a = (Y^T psi_c)^T."""
+    import torch
+    from lcgp_tpu_torch.models import params as P
+    ls, amp, lsig_g, nug = P.constrain(free)
+    sigma = torch.exp(P.expand_sigma(lsig_g, m._data.sigma_map))
+    a = (m._data.ys.T @ (m._data.phi / torch.sqrt(sigma)[:, None])).T
+    return ls, amp, nug, m._data.diag_D, a.contiguous()
+
+
+def loss_factor(m, ls, amp, nug, D):
+    """The lower Cholesky factor of the loss's B = D C + (1 + jitter) I."""
+    import torch
+    from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    dv = torch.full((D.shape[0], m.n), 1.0 + m._jitter, dtype=D.dtype,
+                    device=D.device)
+    return linalg.cholesky(gram_factor_target(m.x, ls, amp, nug,
+                                              row_scale=D, diag_vec=dv))
+
+
+def fused_operands(m, ls, amp, nug, D, a):
+    """The loss gradient's (B^{-1}, w = B^{-1} a), formed as the loss forms
+    them."""
+    from lcgp_tpu_torch.ops import linalg
+    L = loss_factor(m, ls, amp, nug, D)
+    w = linalg.cho_solve_vec(L, a).contiguous()
+    return linalg.chol_inverse(L), w
+
+
+def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256):
+    """Component k of the VJP, (glens (d,), gamp, gnug), recomputed on the
+    host in extended precision from the same f64 operands: cotangent
+    alpha_k M_k + beta w_k w_k^T, distances subtracted first.  Pairs whose
+    sum of S exceeds 1000 are left out: their terms are below
+    e^-1000 (1 + S)^d, far under any bound."""
+    ld = np.longdouble
+    X64 = xs.cpu().numpy()
+    X = X64.astype(ld)
+    inv64 = 1 / ls[k].cpu().numpy()
+    inv = 1 / ls[k].cpu().numpy().astype(ld)
+    Mk = M[k].cpu().numpy()
+    wk = None if w is None else w[k].cpu().numpy().astype(ld)
+    a_k = ld(1.0) if alpha is None else ld(float(alpha[k]))
+    n, d = X.shape
+    g0, gl = ld(0), np.zeros(d, ld)
+    for r0 in range(0, n, rows):
+        ssum = (np.abs(X64[r0:r0 + rows, None, :] - X64[None]) * inv64).sum(2)
+        i, j = np.nonzero(ssum < 1000.0)
+        i = i + r0
+        S = np.abs(X[i] - X[j]) * inv
+        cb = a_k * Mk[i, j].astype(ld)
+        if wk is not None:
+            cb = cb + ld(beta) * wk[i] * wk[j]
+        cc = cb * np.prod(1 + S, axis=1) * np.exp(-S.sum(axis=1))
+        g0 += cc.sum()
+        gl += (cc[:, None] * (S * S / (1 + S))).sum(axis=0)
+    diag = a_k * np.diagonal(Mk).astype(ld)
+    if wk is not None:
+        diag = diag + ld(beta) * wk * wk
+    g1 = diag.sum()
+    A, N = ld(float(amp[k])), ld(float(nug[k]))
+    eta = N / (1 + N)
+    return (A * (1 - eta) * gl * inv, (1 - eta) * g0 + eta * g1,
+            A * (g1 - g0) / (1 + N) ** 2)
+
+
+def compare_vjp(name, got, ref, scale, extended=None):
+    """K2's (glens, gamp, gnug) against the plain version's: each error at
+    most VJP_BOUND times the magnitude of its sum's terms.  Where the two
+    differ by more, and ``extended(k)`` is given, component k is
+    recomputed in extended precision and K2 must be within the bound of
+    that.  Returns the max abs error against the best reference."""
+    import torch
+    worst = share = 0.0
+    flagged = set()
+    for part, g, r, s in zip(("glens", "gamp", "gnug"), got, ref, scale):
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite K2 {part}")
+        out = (g - r).abs() > VJP_BOUND * s
+        if extended is None:
+            check(not bool(out.any()), f"{name}: {int(out.sum())} entries of "
+                  f"{part} outside {VJP_BOUND:g} x the magnitude of their "
+                  "terms")
+        flagged |= {int(i) for i in out.nonzero(as_tuple=True)[0]}
+    keep = torch.ones(got[1].shape[0], dtype=torch.bool, device=got[1].device)
+    keep[sorted(flagged)] = False
+    for g, r, s in zip(got, ref, scale):
+        err = (g - r).abs()[keep]
+        if err.numel():
+            worst = max(worst, float(err.max()))
+            share = max(share, float((err / s[keep].clamp_min(1e-300)).max()))
+    say(f"  {name}: max_abs_err={worst:.3e}, max err/magnitude={share:.3e} "
+        f"(bound {VJP_BOUND:g}) over the {int(keep.sum())} components where "
+        f"K2 and plain agree; max |glens| {float(ref[0].abs().max()):.3e}, "
+        f"max |gamp| {float(ref[1].abs().max()):.3e}")
+    if flagged:
+        kshare = pshare = 0.0
+        for k in sorted(flagged):
+            ext = extended(k)
+            for g, r, s, e in zip(got, ref, scale, ext):
+                e = np.asarray(e, dtype=np.longdouble)
+                sk = s[k].cpu().numpy().astype(np.longdouble)
+                kerr = np.abs(g[k].cpu().numpy().astype(np.longdouble) - e)
+                perr = np.abs(r[k].cpu().numpy().astype(np.longdouble) - e)
+                worst = max(worst, float(np.max(kerr)))
+                kshare = max(kshare, float(np.max(kerr / sk)))
+                pshare = max(pshare, float(np.max(perr / sk)))
+                check(bool(np.all(kerr <= VJP_BOUND * sk)),
+                      f"{name}: K2 differs from the extended-precision sums "
+                      f"of component {k} beyond {VJP_BOUND:g} x magnitude")
+        say(f"  {name}: components {sorted(flagged)} differ from plain; "
+            f"against extended precision there, K2 err/magnitude="
+            f"{kshare:.3e}, plain err/magnitude={pshare:.3e}")
+    return worst
+
+
+def phase_vjp(dev, x, y, free_np):
+    """Phase 3, K2 against the plain version.  Returns the kernel record."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.ops.matern import (fused_cotangent,
+                                           launch_matern32_vjp,
+                                           matern32_gram_vjp_fused_plain,
+                                           matern32_gram_vjp_plain,
+                                           matern32_gram_vjp_scale)
+    f64 = torch.float64
+    m = LCGP(y, x, q=20, device=dev)
+    xs, q, n, d = m.x, int(m.q), m.n, m.d
+    errs, times = [], None
+    for label, free in (("init params", m.free),
+                        ("fitted params",
+                         free_params_from_numpy(*free_np, dev))):
+        ls, amp, nug, D, a = loss_operands(m, free)
+        Binv, w = fused_operands(m, ls, amp, nug, D, a)
+        alpha = 0.5 * D
+
+        def k_fused():
+            return launch_matern32_vjp(xs, xs, ls, amp, nug, same=True,
+                                       M=Binv, alpha=alpha, beta=-0.5, w=w)
+
+        def p_fused():
+            return matern32_gram_vjp_fused_plain(xs, ls, amp, nug, M=Binv,
+                                                 alpha=alpha, beta=-0.5, w=w)
+        got, ref = k_fused(), p_fused()
+        scale = matern32_gram_vjp_scale(
+            xs, xs, ls, amp, nug, same=True,
+            cbar=fused_cotangent(Binv, alpha, -0.5, w))
+        torch.cuda.synchronize()
+        errs.append(compare_vjp(
+            f"K2 fused f64 (q={q}, n={n}, d={d}), B^-1 and w at the {label} "
+            f"(min lengthscale {float(ls.min()):.3e})", got, ref, scale,
+            lambda k: vjp_extended(xs, ls, amp, nug, k, Binv, alpha, -0.5,
+                                   w)))
+        if times is None:
+            torch.cuda.empty_cache()
+            times = time_pair(f"K2 fused f64 (loss gradient, q={q} n={n})",
+                              k_fused, p_fused, Binv.numel() * 8, "read")
+        del Binv, w, got, ref, scale
+        torch.cuda.empty_cache()
+
+        # the generic mode: a random symmetric cotangent
+        gen = torch.Generator(device=dev).manual_seed(4)
+        cbar = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
+        cbar = cbar + cbar.mT
+        got = launch_matern32_vjp(xs, xs, ls, amp, nug, same=True, M=cbar)
+        ref = matern32_gram_vjp_plain(xs, xs, ls, amp, nug, same=True,
+                                      cbar=cbar)
+        scale = matern32_gram_vjp_scale(xs, xs, ls, amp, nug, same=True,
+                                        cbar=cbar)
+        torch.cuda.synchronize()
+        errs.append(compare_vjp(
+            f"K2 generic f64, random symmetric cotangent, {label}", got, ref,
+            scale, lambda k: vjp_extended(xs, ls, amp, nug, k, cbar, None,
+                                          0.0, None)))
+        if label == "init params":
+            say(f"  time K2 generic f64 (q={q} n={n}): kernel "
+                f"{cuda_ms(lambda: launch_matern32_vjp(xs, xs, ls, amp, nug, same=True, M=cbar)):.4f} ms")
+        del cbar, got, ref, scale
+        torch.cuda.empty_cache()
+
+    # ragged cross shape: nothing divides the block sizes
+    rr = np.random.default_rng(5)
+    xa = torch.as_tensor(rr.uniform(0, 1, (1000, d)), dtype=f64, device=dev)
+    xb = torch.as_tensor(rr.uniform(0, 1, (977, d)), dtype=f64, device=dev)
+    l7, a7, n7 = moderate_params(rr, 7, d, dev, f64)
+    cbar = torch.as_tensor(rr.standard_normal((7, 1000, 977)), device=dev)
+    got = launch_matern32_vjp(xa, xb, l7, a7, n7, same=False, M=cbar)
+    ref = matern32_gram_vjp_plain(xa, xb, l7, a7, n7, same=False, cbar=cbar)
+    scale = matern32_gram_vjp_scale(xa, xb, l7, a7, n7, same=False,
+                                    cbar=cbar)
+    torch.cuda.synchronize()
+    errs.append(compare_vjp(f"K2 generic f64 ragged (q=7, n1=1000, n2=977, "
+                            f"d={d}, same=False)", got, ref, scale))
+    del m, cbar, got, ref, scale
+    torch.cuda.empty_cache()
+    return dict(name="matern32_gram_vjp", route="cuda", source=K2_SOURCE,
+                replaces=K2_REPLACES, max_abs_err=max(errs),
+                ms=times[0], plain_ms=times[1],
+                shape=f"fused loss cotangent f64 q={q} n={n} d={d}")
+
+
 def warm_timings(m, xte, reps: int = 5, requests: int = 20):
     """Steady-state host-clock times (each ends in a synchronize) after the
     first calls above: loss, aux, and 64-point requests."""
@@ -285,25 +510,54 @@ def warm_timings(m, xte, reps: int = 5, requests: int = 20):
         f"{req_s[int(0.9 * (requests - 1))] * 1e3:.2f} ms (of {requests})")
 
 
-def profile_main_path(m, xte):
-    """Device time by kernel over one aux build and one request."""
+def profile_device(label, fn, top):
+    """Device time by kernel over one call of fn (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        m.compute_aux_predictive_quantities()
-        m.predict(xte[:64], batch_size=64)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     total = sum(e.device_time_total for e in events) / 1e3
-    say(f"  profile of one aux + one request: {total:.3f} ms device time "
-        "in kernels; top kernels:")
-    for e in events[:8]:
+    say(f"  profile of {label}: {total:.3f} ms device time in kernels; top "
+        "kernels:")
+    for e in events[:top]:
         say(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
+
+
+def softclip_np(v, clip):
+    """SoftClip in NumPy (low + softplus(v - low) - softplus(v - high),
+    clipped), independent of the port's torch version."""
+    y = clip.low + np.logaddexp(v - clip.low, 0.0) - np.logaddexp(
+        v - clip.high, 0.0)
+    return np.minimum(np.maximum(y, clip.low), clip.high)
+
+
+def directional_check(name, f, z0, g, ndir, rtol, seed, h):
+    """g . v against central differences of f along ``ndir`` random unit
+    directions v; Richardson's (4 D(h/2) - D(h)) / 3 cancels the h^2 term,
+    so h can stay large against f's rounding."""
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for i in range(ndir):
+        v = rng.standard_normal(z0.size)
+        v /= np.linalg.norm(v)
+        d1 = (f(z0 + h * v) - f(z0 - h * v)) / (2 * h)
+        d2 = (f(z0 + 0.5 * h * v) - f(z0 - 0.5 * h * v)) / h
+        fd = (4 * d2 - d1) / 3
+        an = float(g @ v)
+        rel = abs(an - fd) / abs(fd)
+        worst = max(worst, rel)
+        say(f"  {name}, direction {i}: gradient {an:.12e}, central "
+            f"differences {fd:.12e} (h={h:g}, Richardson), rel {rel:.3e}")
+    check(worst <= rtol, f"{name}: gradient differs from central differences "
+          f"by {worst:.3e} > rtol {rtol:g}")
+    return worst
 
 
 def phase_oracle(dev):
@@ -345,6 +599,26 @@ def phase_oracle(dev):
         say(f"  {name}: max_abs_err={float(err.max()):.3e} max_rel_err={rel:.3e}")
         check(bool(np.all(err <= 1e-12 + 1e-7 * np.abs(b))),
               f"{name} differs from the oracle beyond rtol 1e-7")
+
+    # the loss gradient on the card (K1, K2 and autograd) against central
+    # differences of the oracle's loss in the free parameters
+    from lcgp_tpu_torch.models import likelihood as lik
+    free = P.FreeParams(*(t.clone().requires_grad_(True) for t in m.free))
+    v = lik.neglpost_full(free, m._data, jitter=m._jitter)
+    g = np.concatenate([h(t).ravel() for t in torch.autograd.grad(v, free)])
+    shapes = [tuple(t.shape) for t in m.free]
+    cuts = np.cumsum([int(np.prod(s)) for s in shapes])[:-1]
+    data = (h(m.x), h(m.y), h(m.phi), h(m.diag_D), m.diag_error_structure)
+
+    def f(z):
+        lLmb, lLmb0, lsig, lnug = (part.reshape(s) for part, s in
+                                   zip(np.split(z, cuts), shapes))
+        return oracle.neglpost_full_np(
+            softclip_np(lLmb, P.LLMB_CLIP), softclip_np(lLmb0, P.LLMB0_CLIP),
+            lsig, softclip_np(lnug, P.LNUG_CLIP), *data)
+    z0 = np.concatenate([h(t).ravel() for t in m.free])
+    directional_check("gradient vs oracle", f, z0, g, ndir=4, rtol=1e-6,
+                      seed=7, h=1e-3)
     check(torch.cuda.is_available(), "lost the card")
 
 
@@ -416,8 +690,178 @@ def phase_main(dev, x, y, xte, ytrue, free_np):
           "(loss 1 + aux 1 + 4 requests + 1 fullcov request)")
     check(np.isfinite(loss), "loss not finite")
     warm_timings(m, xte)
-    profile_main_path(m, xte)
+
+    def aux_and_request():
+        m.compute_aux_predictive_quantities()
+        m.predict(xte[:64], batch_size=64)
+    profile_device("one aux + one request", aux_and_request, 8)
     return launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: the loss runs the plain versions of K1 and K2 on the same
+    CUDA tensors, for the reference gradient."""
+    from lcgp_tpu_torch.models import likelihood as lik
+    from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops.matern import (matern32_gram_plain,
+                                           matern32_gram_vjp_fused_plain)
+
+    def factor_target(x, ls, amp, nug, *, row_scale, diag_vec, kind):
+        C = matern32_gram_plain(x, x, ls, amp, nug, same=True)
+        return linalg.add_diag(row_scale[:, None, None] * C, diag_vec)
+
+    def vjp_fused(x, ls, amp, nug, *, M, alpha, beta, w, kind):
+        return matern32_gram_vjp_fused_plain(x, ls, amp, nug, M=M,
+                                             alpha=alpha, beta=beta, w=w)
+    saved = lik.gram_factor_target, lik.gram_vjp_fused
+    lik.gram_factor_target, lik.gram_vjp_fused = factor_target, vjp_fused
+    try:
+        yield
+    finally:
+        lik.gram_factor_target, lik.gram_vjp_fused = saved
+
+
+def time_inverse(m):
+    """B^{-1} from the factor at the model's parameters: the port's
+    chol_inverse (triangular solve against I, then Linv^T Linv) against
+    torch.cholesky_inverse, CUDA-event medians of 3."""
+    import torch
+    from lcgp_tpu_torch.ops import linalg
+    ls, amp, nug, D, _ = loss_operands(m, m.free)
+    L = loss_factor(m, ls, amp, nug, D)
+    ours = cuda_ms(lambda: linalg.chol_inverse(L), reps=3)
+    lib = cuda_ms(lambda: torch.cholesky_inverse(L), reps=3)
+    a, b = linalg.chol_inverse(L), torch.cholesky_inverse(L)
+    rel = float((a - b).abs().max() / b.abs().max())
+    say(f"  B^-1 (q={D.shape[0]}, n={m.n}): chol_inverse {ours:.3f} ms, "
+        f"torch.cholesky_inverse {lib:.3f} ms (max diff {rel:.3e} of max "
+        f"|B^-1|)")
+
+
+def phase_train(dev, x, y, xte, ytrue):
+    """Phase 6: training at config 4 from the data-driven init.  Returns
+    the K2 launch count of the fit."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m = LCGP(y, x, q=20, device=dev)
+    say(f"  LCGP(y, x, q=20) from its data-driven init (q_chunk={m.q_chunk})")
+    loss_fn = m._loss_fn()
+    flat = Flattener(m.free)
+    vg = value_and_grad(loss_fn, flat)
+    z0 = flat.ravel(m.free).cpu().numpy()
+
+    # one loss+grad evaluation as scipy sees it (host value and gradient)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v0, g0 = vg(z0)
+    first_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vg(z0)
+        warm.append(time.perf_counter() - t0)
+    say(f"  loss+grad evaluation: first {first_s:.4f} s, warm median "
+        f"{statistics.median(warm):.4f} s of 5 ("
+        + ", ".join(f"{t:.4f}" for t in warm) + ")")
+    say(f"  torch.cuda.max_memory_allocated over those evaluations (model "
+        f"included): {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(np.isfinite(v0) and bool(np.isfinite(g0).all()),
+          "loss+grad at the init not finite")
+
+    # the same evaluation with the plain versions of K1 and K2
+    k1, k2 = matern32_gram.launches, matern32_gram_vjp.launches
+    with plain_kernels():
+        vp, gp = vg(z0)
+    check((matern32_gram.launches, matern32_gram_vjp.launches) == (k1, k2),
+          "the plain reference launched a kernel")
+    loss_rel = abs(v0 - vp) / abs(vp)
+    say(f"  loss {v0:.12e} vs plain kernels {vp:.12e}: rel {loss_rel:.3e}")
+    check(loss_rel <= 1e-10, "loss differs from the plain kernels' loss")
+    start = 0
+    for name, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
+                          flat.sizes):
+        a, b = g0[start:start + size], gp[start:start + size]
+        start += size
+        err, top = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+        say(f"  gradient {name}: max_abs_err={err:.3e} vs the plain kernels "
+            f"(max |g| {top:.3e}, rel {err / top:.3e})")
+        check(err <= GRAD_RTOL * top, f"gradient {name} differs from the "
+              f"plain kernels' beyond {GRAD_RTOL:g} of its max |g|")
+    del vp, gp
+    torch.cuda.empty_cache()
+
+    def f(z):
+        with torch.no_grad():
+            return float(loss_fn(flat.unravel_host(z)))
+    directional_check("config-4 gradient vs central differences", f, z0, g0,
+                      ndir=3, rtol=1e-5, seed=8, h=1e-3)
+
+    # a short scipy fit: every evaluation is one K1 and one K2 launch
+    losses = []
+
+    def recording_loss_fn(real=m._loss_fn):
+        fn = real()
+
+        def loss(free):
+            v = fn(free)
+            losses.append(v.detach())
+            return v
+        return loss
+    m._loss_fn = recording_loss_fn
+    l_init = float(m.loss())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    matern32_gram.launches = 0
+    matern32_gram_vjp.launches = 0
+    t0 = time.perf_counter()
+    m.fit(method="scipy", maxiter=20)
+    fit_s = sync_s(t0)
+    k1_fit, k2_fit = matern32_gram.launches, matern32_gram_vjp.launches
+    res = m._fit_result
+    say(f"  fit(method='scipy', maxiter=20): stop_reason={res.stop_reason!r} "
+        f"nit={res.nit} nfev={res.nfev} in {fit_s:.3f} s "
+        f"({fit_s / res.nfev:.4f} s per evaluation, "
+        f"{fit_s / max(res.nit, 1):.4f} s per iteration); loss "
+        f"{l_init:.10g} -> {res.fun:.10g}")
+    say(f"  K1 launches in the fit: {k1_fit}; K2 launches: {k2_fit}")
+    check(k2_fit == res.nfev, f"K2 launched {k2_fit} times in {res.nfev} "
+          "evaluations, expected one per evaluation")
+    check(k1_fit == res.nfev, f"K1 launched {k1_fit} times in {res.nfev} "
+          "evaluations")
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          "a loss in the fit was not finite")
+    check(res.fun < l_init, "the fit did not lower the loss")
+    z_fit = flat.ravel(m.free).cpu().numpy()
+    v_fit, g_fit = vg(z_fit)
+    check(np.isfinite(v_fit) and bool(np.isfinite(g_fit).all()),
+          "loss+grad at the fitted parameters not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  torch.cuda.max_memory_allocated over the fit (model included): "
+        f"{peak_gb:.3f} GB")
+
+    ypred = m.predict(xte)[0]
+    check(bool(torch.isfinite(ypred).all()), "prediction after fit not finite")
+    check(tuple(ypred.shape) == ytrue.shape, f"ypred shape {tuple(ypred.shape)}")
+    rmse = float(np.sqrt(np.mean((ypred.cpu().numpy() - ytrue) ** 2)))
+    say(f"  held-out RMSE after the 20-iteration fit, {ytrue.shape[1]} points "
+        f"x {ytrue.shape[0]} outputs: {rmse:.6f}")
+    check(np.isfinite(rmse), "RMSE not finite")
+    profile_device("one loss+grad evaluation", lambda: vg(z_fit), 10)
+    time_inverse(m)
+    return k2_fit
 
 
 def main() -> int:
@@ -438,7 +882,7 @@ def main() -> int:
     from lcgp_tpu_torch.models import transforms as tx
 
     lib = _build.build()
-    say(f"[2] K1 built in {lib.build_seconds:.2f} s -> {lib.path}")
+    say(f"[2] K1 and K2 built in {lib.build_seconds:.2f} s -> {lib.path}")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             say(f"  ptxas: {line.strip()}")
@@ -455,14 +899,19 @@ def main() -> int:
     record = phase_kernels(dev, xs.contiguous(), x0s)
     phase_fitted_gram(dev, xs.contiguous(), free_np)
     del xt, xs, x0s
+    say("[3] K2 against the plain version on the card")
+    record_vjp = phase_vjp(dev, x, y, free_np)
 
     say("[4] port on the card vs the NumPy oracle (n=300, p=20, q=4)")
     phase_oracle(dev)
 
-    say("[5] main path at config 4 (n=4096, p=1000, q=20, d=8, f64)")
+    say("[5] serving at config 4 (n=4096, p=1000, q=20, d=8, f64)")
     record["launches"] = phase_main(dev, x, y, xte, ytrue, free_np)
 
-    say(json.dumps({"kernels": [record]}))
+    say("[6] training at config 4 (n=4096, p=1000, q=20, d=8, f64)")
+    record_vjp["launches"] = phase_train(dev, x, y, xte, ytrue)
+
+    say(json.dumps({"kernels": [record, record_vjp]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

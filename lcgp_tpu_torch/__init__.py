@@ -1,11 +1,13 @@
 """lcgp_tpu_torch — Latent Component Gaussian Processes in PyTorch.
 
 The PyTorch/CUDA port of ``lcgp_tpu``.  Implemented so far: the full-path
-(``submethod='full'``), float64 (``precision='high'``), Matérn 3/2 serving
-path — construction, ``loss()`` at given parameters, ``predict`` (with
-``batch_size`` and ``return_fullcov``) and npz ``save``/``load`` compatible
-with ``lcgp_tpu.LCGP``.  On CUDA the Gram builds run the hand-written kernel
-``csrc/matern32_gram.cu``, compiled on first use.
+(``submethod='full'``), float64 (``precision='high'``), Matérn 3/2 path —
+construction, ``loss()`` and its gradient, ``fit`` (scipy L-BFGS-B, Adam,
+checkpoints), ``predict`` (with ``batch_size`` and ``return_fullcov``) and
+npz ``save``/``load`` compatible with ``lcgp_tpu.LCGP``.  On CUDA the Gram
+builds run the hand-written kernel ``csrc/matern32_gram.cu`` and the
+gradient's Gram VJP runs ``csrc/matern32_gram_vjp.cu``, both compiled on
+first use.
 """
 from . import config  # noqa: F401  (switches TF32 off)
 from .models.lcgp import LCGP

@@ -1,11 +1,12 @@
-"""The LCGP model class, full-path serving shell (counterpart of
+"""The LCGP model class, full path (counterpart of
 ``lcgp_tpu/models/lcgp.py``).
 
-Same constructor surface, parameter accessors, ``loss``/``predict`` and npz
-``save``/``load`` format as ``lcgp_tpu.LCGP``, for ``submethod='full'``,
-``precision='high'`` (float64) and ``kernel='matern32'``.  NumPy or tensors
-in, float64 tensors on ``device`` out.  What is not ported yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+Same constructor surface, parameter accessors, ``loss``/``fit``/``predict``,
+npz ``save``/``load`` format and fit checkpoints as ``lcgp_tpu.LCGP``, for
+``submethod='full'``, ``precision='high'`` (float64) and
+``kernel='matern32'``.  NumPy or tensors in, float64 tensors on ``device``
+out.  What is not ported yet raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import dtype_for, jitter_for
+from ..fit import minimize_adam, minimize_lbfgs
 from . import basis as basis_mod
 from . import likelihood as lik
 from . import params as P
@@ -264,10 +266,111 @@ class LCGP:
         return lik.neglpost_full(self._free, self._data, jitter=self._jitter,
                                  q_chunk=self.q_chunk, kernel=self.kernel)
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fit() is not ported yet: the loss gradient and the scipy "
-            "L-BFGS-B fit are ROADMAP.md Queue 1 items 5-6")
+    def _loss_fn(self):
+        return lik.make_loss(self.submethod, self._data, jitter=self._jitter,
+                             q_chunk=self.q_chunk, kernel=self.kernel)
+
+    # method='auto' switches scipy to a plateau stop at this n
+    _AUTO_ONDEVICE_N = 512
+
+    def fit(self, verbose: bool = False, method: str = 'auto', **kwargs):
+        """Optimize hyperparameters.
+
+        method='auto'  : 'scipy' uncapped (parity semantics) for n < 512;
+                         at n >= 512 'scipy' with a plateau stop (halt when
+                         the relative loss decrease over the last
+                         plateau_patience=20 iterations is below
+                         plateau_rtol=1e-8) and maxiter=2000 as a safety
+                         cap, whose stop is announced and recorded in
+                         ``_fit_result.stop_reason``.
+        method='scipy' : scipy L-BFGS-B over the loss and its gradient (the
+                         reference's semantics; kwargs: scipy options,
+                         plateau_patience, plateau_rtol, callback).
+        method='adam'  : Adam on the device (kwargs: steps, learning_rate,
+                         block_steps, callback).
+
+        checkpoint_path=... saves the free parameters, step and loss at
+        every callback (each L-BFGS iteration, each Adam block); restore
+        with :meth:`restore_checkpoint`.  'lbfgs-jax', 'hybrid' and mesh=
+        are not ported yet.
+        """
+        checkpoint_path = kwargs.pop('checkpoint_path', None)
+        if checkpoint_path is not None:
+            # np.savez appends '.npz' when missing; normalize once so
+            # restore_checkpoint(same_path) finds the file
+            checkpoint_path = self._norm_ckpt_path(checkpoint_path)
+            user_cb = kwargs.pop('callback', None)
+
+            def _ckpt_cb(step, loss, params):
+                def host(t):
+                    return t.detach().cpu().numpy()
+                np.savez(checkpoint_path, step=step, loss=loss,
+                         free_lLmb=host(params.lLmb),
+                         free_lLmb0=host(params.lLmb0),
+                         free_lsigma2s=host(params.lsigma2s),
+                         free_lnugGPs=host(params.lnugGPs))
+                if user_cb is not None:
+                    user_cb(step, loss, params)
+
+            kwargs['callback'] = _ckpt_cb
+
+        if kwargs.pop('mesh', None) is not None:
+            raise NotImplementedError(
+                "fit(mesh=...) is not ported yet (ROADMAP.md Queue 1 "
+                "item 17)")
+        if method == 'auto':
+            method = 'scipy'
+            if self.n >= self._AUTO_ONDEVICE_N:
+                # convergence-based stop instead of a hand-tuned maxiter;
+                # maxiter stays only as a safety cap
+                kwargs.setdefault('plateau_patience', 20)
+                kwargs.setdefault('plateau_rtol', 1e-8)
+                kwargs.setdefault('maxiter', 2000)
+            if verbose or self.verbose:
+                print(f'[lcgp_tpu_torch.fit] auto-selected method={method!r} '
+                      f'(n={self.n}, {kwargs})')
+        if method in ('lbfgs-jax', 'hybrid'):
+            raise NotImplementedError(
+                f"fit(method={method!r}) is not ported yet (ROADMAP.md "
+                "Queue 1 item 12)")
+        self._run_optimizer(self._loss_fn(), method, verbose, **kwargs)
+
+    def _run_optimizer(self, loss_fn, method, verbose, **kwargs):
+        if method == 'scipy':
+            res = minimize_lbfgs(loss_fn, self._free,
+                                 verbose=verbose or self.verbose, **kwargs)
+        elif method == 'adam':
+            res = minimize_adam(loss_fn, self._free, **kwargs)
+        else:
+            raise ValueError(f'Unknown fit method {method!r}.')
+        self._free = res.params
+        self._params_version += 1
+        self._fit_result = res
+        reason = getattr(res, 'stop_reason', None)
+        if reason == 'cap':
+            # a budget-capped stop is always announced, never silent
+            print(f'[lcgp_tpu_torch.fit] stopped on the iteration cap '
+                  f'(nit={int(res.nit)}) before convergence; pass maxiter= '
+                  'to raise the budget or method="scipy" for an uncapped '
+                  'parity run.')
+        elif (verbose or self.verbose) and reason is not None:
+            print(f'[lcgp_tpu_torch.fit] converged: stop_reason={reason!r} '
+                  f'nit={int(res.nit)} loss={float(res.fun):.8g}')
+        return res
+
+    @staticmethod
+    def _norm_ckpt_path(path):
+        path = str(path)
+        return path if path.endswith('.npz') else path + '.npz'
+
+    def restore_checkpoint(self, path):
+        """Load free parameters from a fit(checkpoint_path=...) snapshot
+        (either package's); returns (step, loss) recorded at the
+        snapshot."""
+        with np.load(self._norm_ckpt_path(path), allow_pickle=False) as z:
+            self.free = P.FreeParams(z['free_lLmb'], z['free_lLmb0'],
+                                     z['free_lsigma2s'], z['free_lnugGPs'])
+            return int(z['step']), float(z['loss'])
 
     # Working-set fraction of the device memory the q-chunk planner sizes
     # against, and the budget where there is no device to ask (the CPU)

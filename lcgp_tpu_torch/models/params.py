@@ -33,8 +33,13 @@ class SoftClip(NamedTuple):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.low + softplus(x - self.low) - softplus(x - self.high)
-        # fp rounding can land an ulp outside (low, high) for narrow intervals
-        return torch.clamp(y, self.low, self.high)
+        # fp rounding can land an ulp outside (low, high) for narrow
+        # intervals.  jnp.clip is minimum(maximum(.)), whose gradient splits
+        # a tie (y exactly on a bound) half and half; torch.clamp would pass
+        # the whole gradient, twice JAX's, so clip the same way here.
+        low = torch.full_like(y, self.low)
+        high = torch.full_like(y, self.high)
+        return torch.minimum(torch.maximum(y, low), high)
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
         u = y - self.low

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``lcgp_tpu_torch/csrc/`` are compiled with ``nvcc`` into
-one shared library with a plain C interface and loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  The library is built on first
+Each source under ``lcgp_tpu_torch/csrc/`` is compiled with its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The library is built on first
 use into ``build/lcgp_tpu_torch/<hash of sources and flags>/`` at the root
 of the checkout and reused while the sources are unchanged.  Nothing here
 runs at import time: the CPU-only test suite imports every module.
@@ -22,13 +23,17 @@ _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "lcgp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (x1, x2, inv_l, amp, nug, row_scale, diag_vec, same, q, n1, n2, d,
 #  out, c0_out, stream) -> cudaError_t
 _GRAM_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+# (x1, x2, inv_l, amp, nug, M, w, alpha, beta, same, q, n1, n2, d,
+#  partials, glens, gamp, gnug, stream) -> cudaError_t
+_VJP_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I,
+                 _I, _I, _P, _P, _P, _P, _P]
 
 
 class KernelLibrary:
@@ -43,6 +48,15 @@ class KernelLibrary:
             fn = getattr(self.lib, name)
             fn.argtypes = _GRAM_ARGTYPES
             fn.restype = ctypes.c_int
+        for name in ("lcgp_matern32_gram_vjp_f64",
+                     "lcgp_matern32_gram_vjp_f32"):
+            fn = getattr(self.lib, name)
+            fn.argtypes = _VJP_ARGTYPES
+            fn.restype = ctypes.c_int
+        # (q, n1, n2, d) -> f64 scratch entries for the VJP's partial sums
+        fn = self.lib.lcgp_matern32_gram_vjp_scratch
+        fn.argtypes = [_I, _I, _I, _I]
+        fn.restype = ctypes.c_longlong
 
 
 _LIBRARY: KernelLibrary | None = None
@@ -83,19 +97,40 @@ def build() -> KernelLibrary:
     log = ""
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        # build into a private name, then rename: concurrent builds never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{log}")
-        os.replace(tmp, lib_path)
+        nvcc = _nvcc()
+        # one private work directory per build, renamed into place at the
+        # end: concurrent builds never load a half-written library
+        work = Path(tempfile.mkdtemp(dir=out_dir))
+        try:
+            jobs = []
+            for src in (s for s in _sources() if s.suffix == ".cu"):
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                       str(work / (src.stem + ".o")), str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            objs = []
+            for cmd, proc in jobs:
+                out, _ = proc.communicate()
+                log += out
+                if proc.returncode != 0:
+                    for _, other in jobs:
+                        other.kill()
+                        other.wait()
+                    raise RuntimeError(
+                        f"nvcc failed (exit {proc.returncode}): "
+                        f"{' '.join(cmd)}\n{out}")
+                objs.append(cmd[cmd.index("-o") + 1])
+            tmp = work / lib_path.name
+            cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed (exit {proc.returncode}): "
+                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib_path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     _LIBRARY = KernelLibrary(lib_path, time.perf_counter() - t0, log)
     return _LIBRARY

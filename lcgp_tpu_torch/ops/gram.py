@@ -4,12 +4,14 @@ Only the Matérn 3/2 kind is ported.  On CUDA, :func:`gram_factor_target`
 runs the K1 kernel with its epilogue, so the factorization target
 ``B = row_scale_k * C_k + diag(diag_vec_k)`` is written in one pass and C is
 never written separately.  On the CPU it runs the plain version and the
-epilogue as tensor ops.
+epilogue as tensor ops.  The VJPs (:func:`gram_vjp`, :func:`gram_vjp_fused`)
+run K2 on CUDA and the plain VJP on the CPU.
 """
 from __future__ import annotations
 
 from . import linalg
-from .matern import launch_matern32, matern32_gram
+from .matern import (launch_matern32, matern32_gram, matern32_gram_vjp,
+                     matern32_gram_vjp_fused)
 
 
 def _check_kind(kind: str):
@@ -48,3 +50,25 @@ def gram_factor_target(x, lengthscales, amplitudes, nuggets, *, row_scale,
     B = linalg.add_diag(row_scale.to(C.dtype)[:, None, None] * C,
                         diag_vec.to(C.dtype))
     return (B, c0) if want_c0 else B
+
+
+def gram_vjp(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
+             cbar, kind: str = 'matern32', c0=None):
+    """Analytic (glens, gamp, gnug) for a Gram-stack cotangent ``cbar``.
+    x carries no gradient (data).  ``c0``: the raw correlation stack from
+    ``gram_stack(want_c0=True)``; the plain version then skips its rebuild
+    (K2 recomputes C0 either way)."""
+    _check_kind(kind)
+    return matern32_gram_vjp(x1, x2, lengthscales, amplitudes, nuggets,
+                             same=same, cbar=cbar, c0=c0)
+
+
+def gram_vjp_fused(x, lengthscales, amplitudes, nuggets, *, M, alpha,
+                   beta: float, w, kind: str = 'matern32'):
+    """(glens, gamp, gnug) of the same-point Gram at the cotangent
+    ``alpha_k M_k + beta w_k w_k^T``, which the loss gradient needs with
+    M = B^{-1}, alpha = D/2 and beta = -1/2.  On CUDA the cotangent is
+    never formed."""
+    _check_kind(kind)
+    return matern32_gram_vjp_fused(x, lengthscales, amplitudes, nuggets, M=M,
+                                   alpha=alpha, beta=beta, w=w)

@@ -52,3 +52,28 @@ def cho_solve(chols: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 def cho_solve_vec(chols: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """(L L^T)^{-1} v with v (..., n)."""
     return cho_solve(chols, vecs[..., :, None])[..., :, 0]
+
+
+def chol_inverse(chols: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^{-1} = L^{-T} L^{-1} from the lower factor L, batched: one
+    triangular solve against I (cuBLAS trsm on CUDA) and one matmul.  The
+    loss gradient's B^{-1}.
+
+    ``torch.cholesky_inverse`` computes the same; on an H100 (700 W) at
+    (20, 4096, 4096) f64 it took 298.5 ms against 95.0 ms for this form
+    (PERF.md).  The result is a fresh contiguous tensor."""
+    n = chols.shape[-1]
+    eye = torch.eye(n, dtype=chols.dtype, device=chols.device)
+    linv = torch.linalg.solve_triangular(chols, eye.expand_as(chols),
+                                         upper=False, left=True)
+    inv = linv.mT @ linv
+    # on CUDA the product can come back column-major; the matrix is
+    # symmetric, so its transpose is the same inverse with row-major strides
+    # (no copy), which the K2 kernel needs
+    return inv if inv.is_contiguous() else inv.mT.contiguous()
+
+
+def quad_chol(chols: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """v^T (L L^T)^{-1} v, batched; v (..., n)."""
+    z = solve_tri_lower(chols, vecs[..., :, None])[..., :, 0]
+    return torch.sum(z * z, dim=-1)

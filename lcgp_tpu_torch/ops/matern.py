@@ -17,6 +17,12 @@ covmat.py:5-55), quirks included:
 go to the plain version :func:`matern32_gram_plain`; CUDA tensors go to the
 hand-written kernel ``csrc/matern32_gram.cu`` (K1), or the call raises.
 Every launch of K1 adds one to ``matern32_gram.launches``.
+
+Its VJP is dispatched the same way: :func:`matern32_gram_vjp` (any
+cotangent) and :func:`matern32_gram_vjp_fused` (the loss's cotangent
+``alpha_k M + beta w w^T``, never formed on CUDA) run the plain versions on
+CPU tensors and the kernel ``csrc/matern32_gram_vjp.cu`` (K2) on CUDA
+tensors.  Every launch of K2 adds one to ``matern32_gram_vjp.launches``.
 """
 from __future__ import annotations
 
@@ -172,6 +178,196 @@ def matern32_gram(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
 
 
 matern32_gram.launches = 0
+
+
+def matern32_gram_vjp_plain(x1, x2, lengthscales, amplitudes, nuggets, *,
+                            same: bool, cbar, c0=None):
+    """Plain PyTorch VJP of :func:`matern32_gram_plain`, a transcription of
+    the JAX ``matern32_gram_vjp``.
+
+    Given the cotangent ``cbar`` (q, n1, n2) of the Gram stack, returns
+    (glens (q, d), gamp (q,), gnug (q,)):
+
+        dC/dl_j   = amp (1-eta) C0 S_j^2 / ((1+S_j) l_j)
+        dC/damp   = (1-eta) C0 + eta I[same]
+        dC/dnug   = amp (I[same] - C0) / (1+nug)^2
+
+    ``c0``: the forward's raw correlation stack; when given it is not
+    rebuilt."""
+    lengthscales = torch.atleast_2d(lengthscales)
+    amplitudes = torch.atleast_1d(amplitudes)
+    nuggets = torch.atleast_1d(nuggets)
+    d = x1.shape[1]
+    dt = cbar.dtype
+
+    inv_l = (1.0 / lengthscales).to(dt)
+    u1 = x1.to(dt)[None, :, :] * inv_l[:, None, :]
+    u2 = x2.to(dt)[None, :, :] * inv_l[:, None, :]
+
+    if c0 is None:
+        q, n1 = u1.shape[0], u1.shape[1]
+        prod = torch.ones((q, n1, u2.shape[1]), dtype=dt, device=cbar.device)
+        ssum = torch.zeros_like(prod)
+        for j in range(d):
+            s = torch.abs(u1[:, :, j][:, :, None] - u2[:, :, j][:, None, :])
+            prod = prod * (1.0 + s)
+            ssum = ssum + s
+        c0 = prod * torch.exp(-ssum)
+    else:
+        c0 = c0.to(dt)
+
+    amp = amplitudes.to(dt)
+    nug = nuggets.to(dt)
+    eta = nug / (1.0 + nug)
+
+    gc0 = torch.sum(cbar * c0, dim=(-2, -1))                   # (q,)
+    if same:
+        diag_cbar = torch.diagonal(cbar, dim1=-2, dim2=-1).sum(-1)
+        # diagonal of C0 is exactly 1 (S=0 there)
+        gamp = (1.0 - eta) * gc0 + eta * diag_cbar
+        geta = amp * (diag_cbar - gc0)
+    else:
+        gamp = (1.0 - eta) * gc0
+        geta = amp * (-gc0)
+    gnug = geta / torch.square(1.0 + nug)
+
+    w = cbar * (amp * (1.0 - eta))[:, None, None] * c0
+    glens = []
+    for j in range(d):
+        s = torch.abs(u1[:, :, j][:, :, None] - u2[:, :, j][:, None, :])
+        glens.append(torch.sum(w * s * s / (1.0 + s), dim=(-2, -1))
+                     * inv_l[:, j])
+    glens = torch.stack(glens, dim=-1)                         # (q, d)
+    return (glens.to(lengthscales.dtype), gamp.to(amplitudes.dtype),
+            gnug.to(nuggets.dtype))
+
+
+def fused_cotangent(M, alpha, beta: float, w):
+    """The loss's Gram cotangent ``alpha_k M_k + beta w_k w_k^T``, formed
+    (q, n, n); the plain side of the fused VJP."""
+    return (alpha[:, None, None] * M
+            + beta * w[:, :, None] * w[:, None, :])
+
+
+def matern32_gram_vjp_fused_plain(x, lengthscales, amplitudes, nuggets, *,
+                                  M, alpha, beta: float, w):
+    """Plain VJP of the same-point Gram at the cotangent
+    ``alpha_k M_k + beta w_k w_k^T`` (the JAX package forms it at
+    ``likelihood.py:231-234`` with M = B^{-1}, alpha = D/2, beta = -1/2)."""
+    return matern32_gram_vjp_plain(
+        x, x, lengthscales, amplitudes, nuggets, same=True,
+        cbar=fused_cotangent(M, alpha, beta, w))
+
+
+def matern32_gram_vjp_scale(x1, x2, lengthscales, amplitudes, nuggets, *,
+                            same: bool, cbar, c0=None):
+    """The magnitude each VJP output is a sum of: the VJP's terms taken with
+    |cbar| and every sign made positive, so (glens, gamp, gnug) of
+    non-negative sums.  A kernel's rounding error in a sum is judged
+    against this, not against the sum, which cancels near an optimum."""
+    amp = torch.atleast_1d(amplitudes).to(cbar.dtype)
+    nug = torch.atleast_1d(nuggets).to(cbar.dtype)
+    a = cbar.abs()
+    # same=False leaves out the diagonal terms; their magnitudes go back in
+    glens, gamp, gnug = matern32_gram_vjp_plain(
+        x1, x2, lengthscales, amplitudes, nuggets, same=False, cbar=a, c0=c0)
+    gnug = gnug.abs()
+    if same:
+        diag = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)
+        gamp = gamp + nug / (1.0 + nug) * diag
+        gnug = gnug + amp * diag / torch.square(1.0 + nug)
+    return glens, gamp, gnug
+
+
+def launch_matern32_vjp(x1, x2, lengthscales, amplitudes, nuggets, *,
+                        same: bool, M, alpha=None, beta: float = 0.0,
+                        w=None):
+    """Launch K2 on CUDA tensors; returns (glens (q,d), gamp (q,), gnug (q,)).
+
+    The cotangent is ``alpha_k M_k + beta w_k w_k^T`` (alpha None reads as
+    ones, w None drops the second term); it is never formed.  Launches on
+    the current stream and does not synchronise."""
+    from ._build import build
+
+    q, n1, n2, d = _check_cuda_inputs(x1, x2, lengthscales, amplitudes,
+                                      nuggets, None, None, same)
+    dt = x1.dtype
+    for name, t, shape in (('M', M, (q, n1, n2)), ('w', w, (q, n1)),
+                           ('alpha', alpha, (q,))):
+        if t is None:
+            continue
+        if t.device != x1.device or t.dtype != dt:
+            raise TypeError(f"matern32 VJP kernel: {name} is {t.dtype} on "
+                            f"{t.device}, x1 is {dt} on {x1.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"matern32 VJP kernel: {name} "
+                             f"{tuple(t.shape)} must be {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"matern32 VJP kernel: {name} must be "
+                             "contiguous")
+    if w is not None and not same:
+        raise ValueError("matern32 VJP kernel: w needs same=True")
+    if w is None and beta != 0.0:
+        raise ValueError("matern32 VJP kernel: beta without w")
+
+    lib = build().lib
+    fn = (lib.lcgp_matern32_gram_vjp_f64 if dt == torch.float64
+          else lib.lcgp_matern32_gram_vjp_f32)
+    inv_l = (1.0 / lengthscales).contiguous()
+    glens = torch.empty((q, d), dtype=dt, device=x1.device)
+    gamp = torch.empty((q,), dtype=dt, device=x1.device)
+    gnug = torch.empty((q,), dtype=dt, device=x1.device)
+    partials = torch.empty(
+        (lib.lcgp_matern32_gram_vjp_scratch(q, n1, n2, d),),
+        dtype=torch.float64, device=x1.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = fn(ptr(x1), ptr(x2), ptr(inv_l), ptr(amplitudes), ptr(nuggets),
+                 ptr(M), ptr(w), ptr(alpha), float(beta), int(same), q, n1,
+                 n2, d, ptr(partials), ptr(glens), ptr(gamp), ptr(gnug),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"matern32 VJP kernel launch failed: "
+                           f"cudaError {err}")
+    matern32_gram_vjp.launches += 1
+    return glens, gamp, gnug
+
+
+def matern32_gram_vjp(x1, x2, lengthscales, amplitudes, nuggets, *,
+                      same: bool, cbar, c0=None):
+    """(glens, gamp, gnug) for a Gram-stack cotangent ``cbar``.
+
+    CPU tensors run :func:`matern32_gram_vjp_plain`; CUDA tensors run K2,
+    which recomputes C0 and ignores ``c0``.  Any other device raises."""
+    if x1.device.type == 'cpu':
+        return matern32_gram_vjp_plain(x1, x2, lengthscales, amplitudes,
+                                       nuggets, same=same, cbar=cbar, c0=c0)
+    return launch_matern32_vjp(x1, x2, torch.atleast_2d(lengthscales),
+                               torch.atleast_1d(amplitudes),
+                               torch.atleast_1d(nuggets), same=same, M=cbar)
+
+
+matern32_gram_vjp.launches = 0
+
+
+def matern32_gram_vjp_fused(x, lengthscales, amplitudes, nuggets, *, M,
+                            alpha, beta: float, w):
+    """(glens, gamp, gnug) of the same-point Gram at the cotangent
+    ``alpha_k M_k + beta w_k w_k^T``.
+
+    CPU tensors form the cotangent and run the plain VJP; CUDA tensors run
+    K2, which reads M and w and never forms the cotangent.  Any other
+    device raises."""
+    if x.device.type == 'cpu':
+        return matern32_gram_vjp_fused_plain(x, lengthscales, amplitudes,
+                                             nuggets, M=M, alpha=alpha,
+                                             beta=beta, w=w)
+    return launch_matern32_vjp(x, x, lengthscales, amplitudes, nuggets,
+                               same=True, M=M, alpha=alpha, beta=beta, w=w)
 
 
 def matern32_diag(x0, amplitudes):

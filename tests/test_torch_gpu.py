@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card (marker ``gpu``).
 
-K1 (``lcgp_tpu_torch/csrc/matern32_gram.cu``) is a CUDA kernel with no CPU
+K1 (``lcgp_tpu_torch/csrc/matern32_gram.cu``) and K2
+(``lcgp_tpu_torch/csrc/matern32_gram_vjp.cu``) are CUDA kernels with no CPU
 mode, so these skip without a card.  This file imports neither JAX nor
 ``tests/conftest.py``'s JAX setup, so it runs on a machine that has only
 PyTorch:
@@ -22,7 +23,8 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card: K1 is a CUDA kernel with no CPU mode')
+        pytest.skip('needs a CUDA card: K1 and K2 are CUDA kernels with '
+                    'no CPU mode')
     return torch.device('cuda', 0)
 
 
@@ -113,3 +115,161 @@ def test_lcgp_on_card_matches_cpu(dev):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
     # loss 1 + aux 1 + the predict cross-covariance 1
     assert TM.matern32_gram.launches == before + 3
+
+
+# ---------------------------------------------------------------------------
+# K2 (csrc/matern32_gram_vjp.cu), the VJP of K1, and the loss gradient
+# ---------------------------------------------------------------------------
+
+# K2's rounding in a sum is judged against the sum of the magnitudes of its
+# terms (matern32_gram_vjp_scale), since the sums cancel: f64 1e-12 of
+# that, f32 (per-entry arithmetic in f32, sums in f64) 1e-5.
+VJP_BOUND = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _assert_vjp_close(got, ref, scale, bound):
+    for name, g, r, s in zip(('glens', 'gamp', 'gnug'), got, ref, scale):
+        err = (g.double() - r.double()).abs()
+        assert bool(torch.isfinite(g).all()), name
+        assert bool((err <= bound * s.double()).all()), (
+            f'{name}: max err {float(err.max()):.3e}, max scale '
+            f'{float(s.max()):.3e}')
+
+
+def _sym(rng, q, n, dev, dtype):
+    c = rng.standard_normal((q, n, n))
+    return torch.as_tensor(c + c.transpose(0, 2, 1), dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same,d', [(True, 8), (False, 8), (True, 3),
+                                    (False, 17), (True, 32)])
+def test_vjp_kernel_generic_matches_plain(dev, dtype, same, d):
+    x1, x2, ls, amp, nug = _inputs(dev, 10 + d, 200, 77, d, 5)
+    rng = np.random.default_rng(d)
+    if same:
+        x2 = x1
+        cbar = _sym(rng, 5, 200, dev, torch.float64)
+    else:
+        cbar = torch.as_tensor(rng.standard_normal((5, 200, 77)),
+                               device=dev)
+    got = TM.launch_matern32_vjp(*(t.to(dtype) for t in (x1, x2, ls, amp,
+                                                          nug)),
+                                 same=same, M=cbar.to(dtype).contiguous())
+    ref = TM.matern32_gram_vjp_plain(x1, x2, ls, amp, nug, same=same,
+                                     cbar=cbar)
+    scale = TM.matern32_gram_vjp_scale(x1, x2, ls, amp, nug, same=same,
+                                       cbar=cbar)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype for g in got)
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_vjp_kernel_fused_matches_plain(dev, dtype):
+    x, _, ls, amp, nug = _inputs(dev, 20, 300, 300, 8, 6)
+    rng = np.random.default_rng(20)
+    M = _sym(rng, 6, 300, dev, torch.float64)
+    w = torch.as_tensor(rng.standard_normal((6, 300)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, 6), device=dev)
+    got = TM.matern32_gram_vjp_fused(
+        *(t.to(dtype) for t in (x, ls, amp, nug)), M=M.to(dtype),
+        alpha=alpha.to(dtype), beta=-0.5, w=w.to(dtype))
+    ref = TM.matern32_gram_vjp_fused_plain(x, ls, amp, nug, M=M, alpha=alpha,
+                                           beta=-0.5, w=w)
+    scale = TM.matern32_gram_vjp_scale(
+        x, x, ls, amp, nug, same=True,
+        cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+def test_vjp_kernel_is_deterministic_and_counts(dev):
+    x, _, ls, amp, nug = _inputs(dev, 21, 260, 260, 4, 3)
+    cbar = _sym(np.random.default_rng(21), 3, 260, dev, torch.float64)
+    before = TM.matern32_gram_vjp.launches
+    a = TM.matern32_gram_vjp(x, x, ls, amp, nug, same=True, cbar=cbar)
+    b = TM.matern32_gram_vjp(x, x, ls, amp, nug, same=True, cbar=cbar)
+    assert TM.matern32_gram_vjp.launches == before + 2
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_vjp_kernel_nan_cotangent_gives_nan(dev):
+    x, _, ls, amp, nug = _inputs(dev, 22, 64, 64, 3, 2)
+    cbar = torch.full((2, 64, 64), float('nan'), dtype=torch.float64,
+                      device=dev)
+    out = TM.matern32_gram_vjp(x, x, ls, amp, nug, same=True, cbar=cbar)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isnan(g).all()) for g in out)
+
+
+@pytest.mark.parametrize('bad', ['M shape', 'M dtype', 'M contiguity',
+                                 'w without same', 'beta without w',
+                                 'alpha shape', 'M device'])
+def test_vjp_wrapper_raises_on_bad_input(dev, bad):
+    x1, x2, ls, amp, nug = _inputs(dev, 23, 40, 30, 2, 3)
+    M = torch.zeros((3, 40, 30), dtype=torch.float64, device=dev)
+    kw = dict(same=False, M=M)
+    if bad == 'M shape':
+        kw['M'] = M[:, :, :29].contiguous()
+    elif bad == 'M dtype':
+        kw['M'] = M.float()
+    elif bad == 'M contiguity':
+        kw['M'] = torch.zeros((3, 30, 40), dtype=torch.float64,
+                              device=dev).transpose(1, 2)
+    elif bad == 'w without same':
+        kw['w'] = torch.zeros((3, 40), dtype=torch.float64, device=dev)
+    elif bad == 'beta without w':
+        kw['beta'] = -0.5
+    elif bad == 'alpha shape':
+        kw['alpha'] = torch.ones(2, dtype=torch.float64, device=dev)
+    else:
+        kw['M'] = M.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        TM.launch_matern32_vjp(x1, x2, ls, amp, nug, **kw)
+
+
+@pytest.mark.parametrize('q_chunk', [None, 2])
+def test_lcgp_gradient_on_card_matches_cpu(dev, q_chunk):
+    from lcgp_tpu_torch.models import likelihood as TLik
+    from lcgp_tpu_torch.models import params as TP
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0, 1, (150, 3))
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 2],
+                   x[:, 0] * x[:, 2], np.sin(x.sum(1))])
+    y = y + 0.05 * rng.standard_normal(y.shape)
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=4, q_chunk=q_chunk, device=dev)
+    cpu = lcgp_tpu_torch.LCGP(y, x, q=4, q_chunk=q_chunk, device='cpu')
+
+    def grad(m):
+        free = TP.FreeParams(*(t.clone().requires_grad_(True)
+                               for t in m.free))
+        v = TLik.neglpost_full(free, m._data, q_chunk=m.q_chunk)
+        return v, torch.autograd.grad(v, free)
+    before = TM.matern32_gram_vjp.launches
+    vg, gg = grad(gpu)
+    vc, gc = grad(cpu)
+    assert TM.matern32_gram_vjp.launches == before + (2 if q_chunk else 1)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-10, atol=0)
+    for a, b in zip(gg, gc):
+        assert a.device.type == 'cuda'
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-9 * float(b.abs().max()), err
+
+
+def test_lcgp_fit_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(6)
+    x = rng.uniform(0, 1, (120, 2))
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]),
+                   x[:, 0] * x[:, 1]]) + 0.05 * rng.standard_normal((3, 120))
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=2, device=dev)
+    cpu = lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu')
+    before = TM.matern32_gram_vjp.launches
+    gpu.fit(method='scipy', maxiter=5)
+    cpu.fit(method='scipy', maxiter=5)
+    res = gpu._fit_result
+    assert TM.matern32_gram_vjp.launches == before + res.nfev
+    assert res.nit == cpu._fit_result.nit
+    assert abs(res.fun - cpu._fit_result.fun) <= 1e-8 * abs(res.fun)
+    assert all(t.device.type == 'cuda' for t in gpu.free)

@@ -308,10 +308,17 @@ def test_unported_options_raise(kw, item):
         lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', **kw)
 
 
-def test_fit_raises(pair):
+@pytest.mark.parametrize('kw,item', [
+    (dict(method='lbfgs-jax'), 'item 12'),
+    (dict(method='hybrid'), 'item 12'),
+    (dict(mesh=object()), 'item 17'),
+])
+def test_unported_fit_methods_raise(pair, kw, item):
     _, tm, _ = pair
-    with pytest.raises(NotImplementedError, match='items 5-6'):
-        tm.fit()
+    before = tm.free
+    with pytest.raises(NotImplementedError, match=item):
+        tm.fit(**kw)
+    assert tm.free is before
 
 
 @pytest.mark.parametrize('kw', [dict(submethod='nope'), dict(precision='x'),
