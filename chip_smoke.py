@@ -2,20 +2,23 @@
 """Smoke run of the PyTorch port (lcgp_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR   # K1/K2 times against DIR's, only
 
 Phases, each printing its own lines:
 
 1. fail unless CUDA is available; print the card's name and power limit;
 2. build the hand-written CUDA kernels K1 (csrc/matern32_gram.cu) and K2
    (csrc/matern32_gram_vjp.cu) from the sources in this checkout, one nvcc
-   per source, and print the build time;
+   per source, and print the build time and ptxas's registers, spills and
+   shared memory per instantiation (a spill at MAXD <= 16 fails);
 3. hold K1 against its plain PyTorch version on the card at the main path's
-   shapes (f64 square with epilogue and C0, f64 rectangular), one ragged
-   shape and the f32 instantiation; hold K2 against its plain version at
-   the loss gradient's shape (fused cotangent from a real B^{-1} and w, and
-   a random symmetric cotangent), at moderate and at the fitted config-4
+   shapes (f64 square with epilogue and C0, exactly symmetric; f64
+   rectangular), one ragged shape and the f32 instantiation; hold K2
+   against its plain version at the loss gradient's shape (fused cotangent
+   from a real B^{-1} and w, two launches bit for bit equal, and a random
+   non-symmetric cotangent), at moderate and at the fitted config-4
    parameters, and at one ragged cross shape; time both kernels against
-   their plain versions with CUDA events;
+   their plain versions with CUDA events and print each kernel's bound;
 4. run the port on the card at n=300 against the NumPy oracle
    ``tests/oracle.py`` (losses rtol 1e-9, predictions rtol 1e-7, the loss
    gradient against central differences of the oracle rtol 1e-6);
@@ -26,12 +29,17 @@ Phases, each printing its own lines:
 6. training at config 4 from the data-driven init: one loss+grad
    evaluation timed and checked against the plain kernels' gradient and
    central differences, then ``fit(method='scipy', maxiter=20)``, counting
-   K2 launches (one per evaluation), the peak memory, the held-out RMSE of
-   the short fit and a profile of one loss+grad evaluation.
+   K1 and K2 launches (one each per evaluation), the peak memory, the
+   held-out RMSE of the short fit and a profile of one loss+grad
+   evaluation.
 
-The line before the last is a JSON object with the kernel table; the last
+The line before the last is a JSON object with the kernel table (each
+kernel's times, bound, launches on the main paths and per call); the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before those lines are printed.  Imports nothing of JAX.
+before those lines are printed.  With ``--against DIR`` (another checkout,
+e.g. the parent commit unpacked with ``git archive``) it builds both
+checkouts' kernels, times K1 and K2 of each at the main path's shapes in
+turns, prints one JSON line and stops.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -53,6 +61,11 @@ K2_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram_vjp.cu"
 K2_REPLACES = "lcgp_tpu/ops/matern_pallas.py:233 (_bwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:86)"
 F64_RTOL, F64_ATOL = 1e-12, 1e-14
 F32_RTOL, F32_ATOL = 1e-4, 1e-6
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s;
+# f64 outside the tensor cores 34 TFLOP/s, i.e. 17e12 f64 instructions/s,
+# a DFMA counting as two flops and a DMUL or DADD taking the same slot
+HBM_BYTES_PER_S = 3.35e12
+F64_INSTR_PER_S = 17e12
 # K2's error in each of its sums, as a share of the sum of the magnitudes
 # of the sum's terms (matern32_gram_vjp_scale): the sums cancel near an
 # optimum, so an rtol on the result would say nothing
@@ -71,20 +84,151 @@ def check(cond: bool, what: str):
         raise AssertionError(what)
 
 
+def k1_ops_per_entry(d, epilogue):
+    """K1's f64 instructions per entry and component: S (d), the product
+    as fma (d), the sum (d - 1), exp (~16), C0 (1), C (2) and the factor
+    target's row scale (1)."""
+    return 3 * d + 18 + int(epilogue)
+
+
+def k2_ops_per_entry(d):
+    """K2's: the cotangent (2), S, product and sum (3d), exp (~16), the G0
+    term (2) and ~5 per lengthscale sum (5d)."""
+    return 8 * d + 20
+
+
+def entries(n1, n2, same):
+    """Entries per component the function needs: one triangle, with the
+    diagonal, of a same-point Gram (it is exactly symmetric)."""
+    return n1 * (n1 + 1) // 2 if same else n1 * n2
+
+
+def bound(nbytes, ops):
+    """The least time the card could take, in ms, and what sets it: each
+    input read and each output written once at the HBM rate, or the f64
+    instructions at the f64 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F64_INSTR_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+def say_bound(label, ms, nbytes, ops):
+    """Prints a kernel's bound and the share of it the kernel reached."""
+    b_ms, by = bound(nbytes, ops)
+    say(f"  bound {label}: {b_ms:.4f} ms, set by {by} ({nbytes:.4e} bytes "
+        f"at 3.35 TB/s, {ops:.4e} f64 instructions at 17e12/s); the kernel's "
+        f"{ms:.4f} ms is {b_ms / ms:.1%} of the bound")
+    return b_ms, by
+
+
+def ptxas_report(log):
+    """Registers, spills and shared memory of each kernel instantiation,
+    from nvcc's ``-Xptxas -v`` log; fails on a spill at MAXD <= 16."""
+    import re
+    rows, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(matern32_[a-z_]+_kernel)I([df])(?:Li(\d+)E)?",
+                          m.group(1))
+            cur = rows.setdefault(
+                f"{k.group(1)}<{'double' if k.group(2) == 'd' else 'float'}"
+                + (f", MAXD={k.group(3)}>" if k.group(3) else ">"),
+                {"maxd": int(k.group(3) or 0)})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    for name, r in sorted(rows.items()):
+        say(f"  ptxas {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes', 0)} bytes spilled, "
+            f"{r.get('smem', 0)} bytes static smem")
+    check(len(rows) >= 18, f"ptxas reported {len(rows)} kernels, expected 18")
+    spills = [n for n, r in rows.items()
+              if r["maxd"] <= 16 and r.get("spill_bytes", 0)]
+    check(not spills, f"spills at MAXD <= 16: {spills}")
+    return {n: r.get("registers") for n, r in rows.items()}
+
+
 def cuda_ms(fn, reps: int = 7) -> float:
-    """Median device time of fn() in ms (CUDA events, one warm-up call)."""
+    """Device time of one fn() in ms: the median over 7 windows (CUDA
+    events, after one warm-up call), each of enough back-to-back calls to
+    span about 2 ms, so that a short kernel is timed on the device and not
+    by the host's gaps between launches."""
     import torch
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    calls = max(1, min(100, int(2.0 / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
+             diag_vec=None):
+    """A launch of K1 (f64) from ``lib`` through its C entry on buffers
+    allocated once: the kernel's time without the wrapper's host work
+    (checks, allocation, 1/l).  It counts no launch of the main path."""
+    import torch
+    q, n1, n2, d = ls.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]
+    out = torch.empty((q, n1, n2), dtype=x1.dtype, device=x1.device)
+    inv = (1.0 / ls).contiguous()
+    args = (ptr(x1), ptr(x2), ptr(inv), ptr(amp), ptr(nug), ptr(row_scale),
+            ptr(diag_vec), int(same), q, n1, n2, d, ptr(out), None,
+            torch.cuda.current_stream(x1.device).cuda_stream)
+
+    def launch():
+        check(lib.lcgp_matern32_gram_f64(*args) == 0, "K1 launch failed")
+    # every buffer stays alive while the kernel may read or write it
+    launch.buffers = (x1, x2, ls, amp, nug, row_scale, diag_vec, out, inv)
+    return launch
+
+
+def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w):
+    """The same for K2 (f64, same-point) at the cotangent
+    alpha_k M_k + beta w_k w_k^T."""
+    import torch
+    q, n, d = ls.shape[0], x.shape[0], x.shape[1]
+    inv = (1.0 / ls).contiguous()
+    outs = [torch.empty(s, dtype=x.dtype, device=x.device)
+            for s in ((q, d), (q,), (q,))]
+    part = torch.empty((lib.lcgp_matern32_gram_vjp_scratch(q, n, n, d),),
+                       dtype=torch.float64, device=x.device)
+    args = (ptr(x), ptr(x), ptr(inv), ptr(amp), ptr(nug), ptr(M), ptr(w),
+            ptr(alpha), float(beta), 1, q, n, n, d, ptr(part),
+            *(ptr(o) for o in outs),
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+    def launch():
+        check(lib.lcgp_matern32_gram_vjp_f64(*args) == 0, "K2 launch failed")
+    launch.buffers = (x, ls, amp, nug, M, alpha, w, inv, outs, part)
+    return launch
 
 
 def config4():
@@ -100,8 +244,8 @@ def config4():
 
 def time_pair(label, kernel, plain, nbytes, moved="written"):
     """Kernel and plain times in turns (plain, kernel, kernel, plain), each
-    the median of 7 launches; prints the kernel's rate of the bytes it
-    writes (K1) or reads (K2)."""
+    by cuda_ms; prints the kernel's rate of the bytes it writes (K1) or
+    reads (K2)."""
     p1, k1, k2, p2 = (cuda_ms(fn) for fn in (plain, kernel, kernel, plain))
     k, p = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"  time {label}: kernel {k:.4f} ms ({nbytes / k / 1e6:.0f} GB/s "
@@ -139,8 +283,10 @@ def phase_kernels(dev, xs, x0s):
     """Phase 3: K1 against the plain version.  Returns the kernel record."""
     import torch
     from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops._build import build
     from lcgp_tpu_torch.ops.matern import (launch_matern32,
                                            matern32_gram_plain)
+    lib = build().lib
     f64 = torch.float64
     rng = np.random.default_rng(1)
     q, n, d = 20, xs.shape[0], xs.shape[1]
@@ -167,6 +313,10 @@ def phase_kernels(dev, xs, x0s):
     errs.append(compare("f64 square C0", c0_k, c0_p, F64_RTOL, F64_ATOL))
     check(bool((torch.diagonal(c0_k, dim1=-2, dim2=-1) == 1.0).all()),
           "C0 diagonal is not exactly 1")
+    # K1 computes one triangle of tiles and mirrors it
+    check(torch.equal(B_k, B_k.mT) and torch.equal(c0_k, c0_k.mT),
+          "K1's same-point B or C0 is not exactly symmetric")
+    say("  f64 square B and C0 exactly symmetric: True")
     del B_k, c0_k, B_p, c0_p
     C_k, _ = launch_matern32(xs, xs, ls, amp, nug, same=True)
     torch.cuda.synchronize()
@@ -179,7 +329,12 @@ def phase_kernels(dev, xs, x0s):
     torch.cuda.synchronize()
     stack = q * n * n * 8
     k_ms, p_ms = time_pair(f"f64 square+epilogue (aux/loss, q={q} n={n})",
-                           k_sq, p_sq, stack)
+                           raw_gram(lib, xs, xs, ls, amp, nug, True, rs, dv),
+                           p_sq, stack)
+    inputs = (xs.numel() + ls.numel() + 3 * q + dv.numel()) * 8
+    b_ms, b_by = say_bound(
+        "K1 square+epilogue", k_ms, stack + inputs,
+        q * entries(n, n, True) * k1_ops_per_entry(d, True))
     time_pair("f64 square+epilogue+C0", lambda: k_sq(True),
               lambda: p_sq(True), 2 * stack)
     torch.cuda.empty_cache()
@@ -200,10 +355,16 @@ def phase_kernels(dev, xs, x0s):
                         F64_RTOL, F64_ATOL))
     req_ms, req_plain_ms = time_pair(
         "f64 rectangular n1=64 (one request)",
-        lambda: launch_matern32(x64, xs, ls, amp, nug, same=False),
+        raw_gram(lib, x64, xs, ls, amp, nug, False),
         lambda: matern32_gram_plain(x64, xs, ls, amp, nug, same=False),
         q * 64 * n * 8)
-    time_pair("f64 rectangular n1=256", k_rect, p_rect, q * 256 * n * 8)
+    req_bound, req_by = say_bound(
+        "K1 request", req_ms,
+        q * 64 * n * 8 + ((64 + n) * d + ls.numel() + 2 * q) * 8,
+        q * entries(64, n, False) * k1_ops_per_entry(d, False))
+    time_pair("f64 rectangular n1=256", raw_gram(lib, x0s, xs, ls, amp, nug,
+                                                  False),
+              p_rect, q * 256 * n * 8)
 
     # ragged shape: nothing divides the block sizes
     rr = np.random.default_rng(2)
@@ -237,9 +398,11 @@ def phase_kernels(dev, xs, x0s):
     torch.cuda.empty_cache()
     return dict(name="matern32_gram", route="cuda", source=K1_SOURCE,
                 replaces=K1_REPLACES, max_abs_err=max(errs),
-                ms=k_ms, plain_ms=p_ms,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
                 shape=f"square+epilogue f64 q={q} n={n} d={d}",
-                request_ms=req_ms, request_plain_ms=req_plain_ms)
+                request_ms=req_ms, request_plain_ms=req_plain_ms,
+                request_bound_ms=req_bound, request_bound_by=req_by)
 
 
 def phase_fitted_gram(dev, xs, free_np):
@@ -258,6 +421,7 @@ def phase_fitted_gram(dev, xs, free_np):
     C_k = launch_matern32(xs, xs, ls, amp, nug, same=True)[0]
     C_p = matern32_gram_plain(xs, xs, ls, amp, nug, same=True)
     check(bool(torch.isfinite(C_k).all()), "fitted-params Gram not finite")
+    check(torch.equal(C_k, C_k.mT), "fitted-params Gram not exactly symmetric")
     err = (C_k - C_p).abs()
     outside = err > F64_ATOL + F64_RTOL * C_p.abs()
     k, i, j = (a.cpu().numpy() for a in outside.nonzero(as_tuple=True))
@@ -414,10 +578,12 @@ def phase_vjp(dev, x, y, free_np):
                                            matern32_gram_vjp_fused_plain,
                                            matern32_gram_vjp_plain,
                                            matern32_gram_vjp_scale)
+    from lcgp_tpu_torch.ops._build import build
+    lib = build().lib
     f64 = torch.float64
     m = LCGP(y, x, q=20, device=dev)
     xs, q, n, d = m.x, int(m.q), m.n, m.d
-    errs, times = [], None
+    errs, times, bounds = [], None, None
     for label, free in (("init params", m.free),
                         ("fitted params",
                          free_params_from_numpy(*free_np, dev))):
@@ -433,6 +599,11 @@ def phase_vjp(dev, x, y, free_np):
             return matern32_gram_vjp_fused_plain(xs, ls, amp, nug, M=Binv,
                                                  alpha=alpha, beta=-0.5, w=w)
         got, ref = k_fused(), p_fused()
+        again = k_fused()
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              "K2 fused: two launches on the same inputs differ")
+        say(f"  K2 fused at the {label}: two launches give the same bits")
         scale = matern32_gram_vjp_scale(
             xs, xs, ls, amp, nug, same=True,
             cbar=fused_cotangent(Binv, alpha, -0.5, w))
@@ -445,14 +616,21 @@ def phase_vjp(dev, x, y, free_np):
         if times is None:
             torch.cuda.empty_cache()
             times = time_pair(f"K2 fused f64 (loss gradient, q={q} n={n})",
-                              k_fused, p_fused, Binv.numel() * 8, "read")
-        del Binv, w, got, ref, scale
+                              raw_vjp(lib, xs, ls, amp, nug, Binv, alpha,
+                                      -0.5, w),
+                              p_fused, Binv.numel() * 8, "read")
+            bounds = say_bound(
+                "K2 fused", times[0],
+                (Binv.numel() + w.numel() + xs.numel() + 5 * q + ls.numel()
+                 + q * (d + 2)) * 8,
+                q * entries(n, n, True) * k2_ops_per_entry(d))
+        del Binv, w, got, again, ref, scale
         torch.cuda.empty_cache()
 
-        # the generic mode: a random symmetric cotangent
+        # the generic mode: a random non-symmetric cotangent, which pins
+        # K2's pairing of the two triangles
         gen = torch.Generator(device=dev).manual_seed(4)
         cbar = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
-        cbar = cbar + cbar.mT
         got = launch_matern32_vjp(xs, xs, ls, amp, nug, same=True, M=cbar)
         ref = matern32_gram_vjp_plain(xs, xs, ls, amp, nug, same=True,
                                       cbar=cbar)
@@ -460,12 +638,14 @@ def phase_vjp(dev, x, y, free_np):
                                         cbar=cbar)
         torch.cuda.synchronize()
         errs.append(compare_vjp(
-            f"K2 generic f64, random symmetric cotangent, {label}", got, ref,
-            scale, lambda k: vjp_extended(xs, ls, amp, nug, k, cbar, None,
-                                          0.0, None)))
+            f"K2 generic f64, random non-symmetric cotangent, {label}", got,
+            ref, scale, lambda k: vjp_extended(xs, ls, amp, nug, k, cbar,
+                                               None, 0.0, None)))
         if label == "init params":
+            generic_ms = cuda_ms(raw_vjp(lib, xs, ls, amp, nug, cbar, None,
+                                         0.0, None))
             say(f"  time K2 generic f64 (q={q} n={n}): kernel "
-                f"{cuda_ms(lambda: launch_matern32_vjp(xs, xs, ls, amp, nug, same=True, M=cbar)):.4f} ms")
+                f"{generic_ms:.4f} ms")
         del cbar, got, ref, scale
         torch.cuda.empty_cache()
 
@@ -486,7 +666,8 @@ def phase_vjp(dev, x, y, free_np):
     torch.cuda.empty_cache()
     return dict(name="matern32_gram_vjp", route="cuda", source=K2_SOURCE,
                 replaces=K2_REPLACES, max_abs_err=max(errs),
-                ms=times[0], plain_ms=times[1],
+                ms=times[0], plain_ms=times[1], bound_ms=bounds[0],
+                bound_by=bounds[1], library_ms=None,
                 shape=f"fused loss cotangent f64 q={q} n={n} d={d}")
 
 
@@ -622,8 +803,17 @@ def phase_oracle(dev):
     check(torch.cuda.is_available(), "lost the card")
 
 
+def launches_of(fn):
+    """(K1, K2) launches of one call of fn."""
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+    k1, k2 = matern32_gram.launches, matern32_gram_vjp.launches
+    fn()
+    return matern32_gram.launches - k1, matern32_gram_vjp.launches - k2
+
+
 def phase_main(dev, x, y, xte, ytrue, free_np):
-    """Phase 5: the main path at config 4.  Returns the K1 launch count."""
+    """Phase 5: the main path at config 4.  Returns the K1 launch count
+    and the (K1, K2) launches of one loss, one aux build and one request."""
     import torch
     from lcgp_tpu_torch import LCGP
     from lcgp_tpu_torch.convert import free_params_from_numpy
@@ -690,12 +880,16 @@ def phase_main(dev, x, y, xte, ytrue, free_np):
           "(loss 1 + aux 1 + 4 requests + 1 fullcov request)")
     check(np.isfinite(loss), "loss not finite")
     warm_timings(m, xte)
+    per_call = {"loss": launches_of(m.loss),
+                "aux": launches_of(m.compute_aux_predictive_quantities),
+                "request": launches_of(
+                    lambda: m.predict(xte[:64], batch_size=64))}
 
     def aux_and_request():
         m.compute_aux_predictive_quantities()
         m.predict(xte[:64], batch_size=64)
     profile_device("one aux + one request", aux_and_request, 8)
-    return launches
+    return launches, per_call
 
 
 @contextlib.contextmanager
@@ -741,7 +935,8 @@ def time_inverse(m):
 
 def phase_train(dev, x, y, xte, ytrue):
     """Phase 6: training at config 4 from the data-driven init.  Returns
-    the K2 launch count of the fit."""
+    the K1 and K2 launch counts of the fit and the (K1, K2) launches of one
+    loss+grad evaluation."""
     import torch
     from lcgp_tpu_torch import LCGP
     from lcgp_tpu_torch.fit._flat import Flattener
@@ -772,6 +967,7 @@ def phase_train(dev, x, y, xte, ytrue):
         t0 = time.perf_counter()
         vg(z0)
         warm.append(time.perf_counter() - t0)
+    per_eval = launches_of(lambda: vg(z0))
     say(f"  loss+grad evaluation: first {first_s:.4f} s, warm median "
         f"{statistics.median(warm):.4f} s of 5 ("
         + ", ".join(f"{t:.4f}" for t in warm) + ")")
@@ -861,10 +1057,72 @@ def phase_train(dev, x, y, xte, ytrue):
     check(np.isfinite(rmse), "RMSE not finite")
     profile_device("one loss+grad evaluation", lambda: vg(z_fit), 10)
     time_inverse(m)
-    return k2_fit
+    return k1_fit, k2_fit, per_eval
+
+
+def other_library(root):
+    """The kernel library of another checkout at ``root`` (for example the
+    parent commit, unpacked with ``git archive``), built by that checkout's
+    own build code into its own build directory and bound as this one's:
+    the C entry points keep their signatures from one version to the
+    next."""
+    from lcgp_tpu_torch.ops import _build
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from lcgp_tpu_torch.ops import _build; "
+            "print(_build.build().path)")
+    out = subprocess.run([sys.executable, "-c", code, str(root)],
+                         capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0,
+          f"building the kernels of {root} failed:\n{out.stderr[-4000:]}")
+    return _build.KernelLibrary(Path(out.stdout.split()[-1]), 0.0, "").lib
+
+
+def phase_against(dev, xs, x0s, root):
+    """K1 and K2 of this checkout against another checkout's, at the main
+    path's shapes and f64, in turns (other, this, this, other).  Returns
+    {kernel: {"this": ms, "other": ms}}."""
+    import torch
+    from lcgp_tpu_torch.ops._build import build
+    libs = {"this": build().lib, "other": other_library(root)}
+    f64 = torch.float64
+    rng = np.random.default_rng(1)
+    q, n, d = 20, xs.shape[0], xs.shape[1]
+    ls, amp, nug = moderate_params(rng, q, d, dev, f64)
+    rs = torch.as_tensor(rng.uniform(0.1, 10.0, q), dtype=f64, device=dev)
+    dv = torch.ones((q, n), dtype=f64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    M = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
+    w = torch.randn((q, n), generator=gen, dtype=f64, device=dev)
+    x64 = x0s[:64].contiguous()
+    cases = {
+        f"K1 square+epilogue (q={q}, n={n})":
+            lambda lib: raw_gram(lib, xs, xs, ls, amp, nug, True, rs, dv),
+        f"K1 request (q={q}, n1=64, n2={n})":
+            lambda lib: raw_gram(lib, x64, xs, ls, amp, nug, False),
+        f"K2 fused (q={q}, n={n})":
+            lambda lib: raw_vjp(lib, xs, ls, amp, nug, M, 0.5 * rs, -0.5, w),
+    }
+    result = {}
+    for label, make in cases.items():
+        fns = {k: make(lib) for k, lib in libs.items()}
+        o1, t1, t2, o2 = (cuda_ms(fns[k])
+                          for k in ("other", "this", "this", "other"))
+        result[label] = {"this": (t1 + t2) / 2, "other": (o1 + o2) / 2}
+        say(f"  {label}: this {(t1 + t2) / 2:.4f} ms ({t1:.4f}/{t2:.4f}), "
+            f"{root}: {(o1 + o2) / 2:.4f} ms ({o1:.4f}/{o2:.4f})")
+        del fns
+        torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Smoke run of lcgp_tpu_torch on one CUDA card.")
+    ap.add_argument("--against", metavar="DIR",
+                    help="only time K1 and K2 of this checkout against "
+                         "those of the checkout at DIR, in turns")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
@@ -883,9 +1141,7 @@ def main() -> int:
 
     lib = _build.build()
     say(f"[2] K1 and K2 built in {lib.build_seconds:.2f} s -> {lib.path}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"  ptxas: {line.strip()}")
+    registers = ptxas_report(lib.log)
 
     x, y, xte, ytrue = config4()
     with np.load(FITTED, allow_pickle=False) as z:
@@ -894,6 +1150,12 @@ def main() -> int:
     xs, x_min, x_max = tx.standardize_x(xt)
     x0s = ((torch.as_tensor(xte, dtype=torch.float64, device=dev) - x_min)
            / (x_max - x_min)).contiguous()
+    if args.against:
+        say(f"[3] K1 and K2 against those of {args.against}")
+        times = phase_against(dev, xs.contiguous(), x0s,
+                              Path(args.against).resolve())
+        say(json.dumps({"against": args.against, "kernels_ms": times}))
+        return 0
 
     say("[3] K1 against the plain version on the card")
     record = phase_kernels(dev, xs.contiguous(), x0s)
@@ -906,10 +1168,24 @@ def main() -> int:
     phase_oracle(dev)
 
     say("[5] serving at config 4 (n=4096, p=1000, q=20, d=8, f64)")
-    record["launches"] = phase_main(dev, x, y, xte, ytrue, free_np)
+    k1_serve, per_call = phase_main(dev, x, y, xte, ytrue, free_np)
 
     say("[6] training at config 4 (n=4096, p=1000, q=20, d=8, f64)")
-    record_vjp["launches"] = phase_train(dev, x, y, xte, ytrue)
+    k1_fit, k2_fit, per_call["loss_grad"] = phase_train(dev, x, y, xte,
+                                                         ytrue)
+    say("  launches per call (K1, K2): " + ", ".join(
+        f"{k} {v}" for k, v in per_call.items()))
+    check(per_call["loss_grad"] == (1, 1),
+          f"one loss+grad evaluation launched {per_call['loss_grad']}")
+    # the main paths: serving (phase 5) runs K1, the fit (phase 6) K1 and K2
+    for rec, i, launches, prefix in (
+            (record, 0, k1_serve + k1_fit, "matern32_gram_kernel"),
+            (record_vjp, 1, k2_fit, "matern32_vjp_")):
+        rec["launches"] = launches
+        rec["launches_per_eval"] = per_call["loss_grad"][i]
+        rec["launches_per_call"] = {k: v[i] for k, v in per_call.items()}
+        rec["registers"] = {k: v for k, v in registers.items()
+                            if k.startswith(prefix)}
 
     say(json.dumps({"kernels": [record, record_vjp]}))
     say(json.dumps({"ok": True, "device": {

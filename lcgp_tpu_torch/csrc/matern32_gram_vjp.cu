@@ -28,30 +28,51 @@
 //
 // C0 is recomputed from the distances, as the Pallas _bwd_kernel did,
 // rather than read from a stored stack: the training forward then never
-// writes C0 (a 2.7 GB f64 stack at q=20, n=4096).  Each distance is formed
-// the way K1 forms it, |x1 - x2| * (1/l) (subtract first), so the recomputed
-// C0 equals K1's bit for bit.  The quotient S^2/(1+S) costs no division:
-// with prefix and suffix products of the (1 + S_u),
-// C0 S_t^2/(1+S_t) = exp(-sum S) * S_t^2 * prod_{u != t} (1 + S_u).
+// writes C0 (a 2.7 GB f64 stack at q=20, n=4096).  It is formed with K1's
+// device code (matern32_common.cuh), so it equals K1's bit for bit.  The
+// quotient S^2/(1+S) costs no division: with the prefix products of
+// factors() and suffix products started at cbar * exp(-sum S),
+// cbar C0 S_t^2/(1+S_t) = [cbar exp(-sum S) prod_{u>t} (1+S_u)] prod_{u<t} (1+S_u) S_t^2.
 //
-// What bounds it on the card: f64 arithmetic.  It reads M once (2.7 GB at
-// q=20, n=4096 in f64, ~0.8 ms at 3.35 TB/s), but each entry and
-// component costs about 11 d flops plus one f64 exp, more than K1's
-// 3 d + exp, and K1 is already arithmetic bound at that shape.  The layout
-// is K1's: threads along x own consecutive j, so the reads of M[k,i,:] are
-// coalesced; a thread keeps its d raw distances in registers for each row
-// and walks the KC components of its block (blockIdx.z picks the chunk);
-// the chunk's 1/l rows and alphas sit in shared memory, and the block's
-// x2 rows are staged there too.  Summing one triangle of the symmetric
-// same-point cbar * C0 would halve the work; that is left for later.
+// What bounds it on the card: f64 arithmetic, with the read of M just under
+// it.  Each entry and component costs about 8d + 20 f64 instructions (84 at
+// d = 8: the cotangent, S, the product and sum, exp, and ~5 per lengthscale
+// sum); over one triangle of (20, 4096, 4096) that is 0.83 ms at the f64
+// peak of 17e12 instructions/s, and reading M once is 2.7 GB, 0.80 ms at
+// 3.35 TB/s.  The design:
+//
+// - One triangle when same.  The summand f_ij is symmetric, so
+//   sum_{i != j} cbar_ij f_ij = sum_{i > j} (cbar_ij + cbar_ji) f_ij, exact
+//   for any M.  The grid walks the tile pairs (ti >= tj) of 64 x 64 tiles;
+//   a block reads its tile of M and the transposed tile M[k, tj, ti], and
+//   sums (cbar_ij + cbar_ji) f_ij, in the fused mode
+//   alpha_k (M_ij + M_ji) + 2 beta w_i w_j.  A diagonal tile takes i > j in
+//   pairs and i == j once (C0 = 1 exactly there, and the lengthscale terms
+//   vanish).  A cross cotangent (same = 0) walks every tile, unpaired.
+// - Latency hiding.  A block walks its tile for every component in stages
+//   of 16 rows: a stage is the 16 x 64 strip of M, the 64 x 16 strip of the
+//   transposed tile, the strips of w and the component's 1/l row.  Stages
+//   are copied with cp.async into a ring of three shared-memory buffers, two
+//   ahead of the one being summed, so HBM latency hides behind the
+//   arithmetic.  The transposed strip is stored with an odd pitch, so its
+//   column reads are free of bank conflicts while both global reads stay
+//   coalesced.
+// - Occupancy.  A thread owns one column and four rows of a stage: four
+//   independent entries whose S/product/exp chains interleave.  It keeps
+//   only its d + 2 accumulators across a component, so (f64, d <= 8) two
+//   blocks of 256 threads fit an SM.  The tile's x rows are staged once per
+//   block, not per component.
+// - The block reduces its accumulators once per component (four stages,
+//   4096 entries), a few percent of the arithmetic.
 //
 // The reduction across blocks is deterministic, with no atomics: each
 // thread accumulates in f64 registers (in both instantiations), a warp
 // shuffle and a shared-memory pass reduce the block, every block writes its
-// (KC, d + 2) partial sums to a scratch buffer the caller allocates, and a
-// second small kernel sums the partials of each component in a fixed order
-// and applies the epilogue.  The same shapes give the same bits on every
-// run.  A NaN in M (a failed factor) gives NaN gradients, not a fault.
+// (d + 2) partial sums per component to a scratch buffer the caller
+// allocates, and a second small kernel sums the partials of each component
+// in a fixed order and applies the epilogue.  The same shapes give the same
+// bits on every run.  A NaN in M (a failed factor) gives NaN gradients, not
+// a fault.
 //
 // The C entry points launch on the caller's stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() after the launches.
@@ -60,19 +81,65 @@
 
 #include <type_traits>
 
+#include "matern32_common.cuh"
+
 namespace {
 
-constexpr int BX = 32;               // threads along j (one warp: coalesced)
-constexpr int BY = 8;                // threads along i
+constexpr int TT = 64;                // tile side
+constexpr int SR = 16;                // rows of a stage's strip
+constexpr int NSTRIP = TT / SR;       // stages per component
+constexpr int BX = 64;                // threads along j: one column each
+constexpr int BY = 4;                 // threads along i: rows ty + BY m
 constexpr int NT = BX * BY;
 constexpr int NWARP = NT / 32;
-constexpr int ROWS_PER_THREAD = 16;  // rows a thread walks, to amortise the
-                                     // block reduction
-constexpr int MAX_GRID_Y = 65535;
-constexpr int MAX_GRID_Z = 65535;
+constexpr int RPT = SR / BY;          // entries per thread and stage
+constexpr int BP = SR + 1;            // pitch of the transposed strip
+constexpr int NSTAGE = 3;             // ring of stages in shared memory
 
-__device__ __forceinline__ double exp_t(double v) { return exp(v); }
-__device__ __forceinline__ float exp_t(float v) { return expf(v); }
+// One stage in shared memory, offsets in elements of T.
+template <int MAXD>
+struct Stage {
+  static constexpr int A = 0;                  // [SR][TT]  M[k, i0+r, j0+c]
+  static constexpr int B = A + SR * TT;        // [TT][BP]  M[k, j0+c, i0+r]
+  static constexpr int WI = B + TT * BP;       // [SR]      w[k, i0+r]
+  static constexpr int WJ = WI + SR;           // [TT]      w[k, j0+c]
+  static constexpr int INV = WJ + TT;          // [MAXD]    1/l row of k
+  static constexpr int ALPHA = INV + MAXD;     // [1]       alpha_k
+  static constexpr int SIZE = (ALPHA + 2) & ~1;
+};
+
+template <typename T, int MAXD>
+constexpr size_t smem_bytes() {
+  return sizeof(double) * NWARP * (MAXD + 2)          // block reduction
+         + sizeof(T) * TT * (MAXD + 1)                // x of the tile's rows
+         + sizeof(T) * MAXD * TT                      // x of its columns
+         + sizeof(T) * NSTAGE * Stage<MAXD>::SIZE;    // the ring
+}
+
+long long tiles(int n) { return (n + TT - 1) / TT; }
+
+long long block_count(int same, int n1, int n2) {
+  return same ? tiles(n1) * (tiles(n1) + 1) / 2 : tiles(n1) * tiles(n2);
+}
+
+// Copies one element of T from global to shared memory, asynchronously;
+// writes zero, reading nothing, when !valid.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -82,24 +149,8 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// components per block: the accumulators take KC * (MAXD + 2) f64 registers
-template <int MAXD>
-constexpr int comps_per_block() {
-  return MAXD <= 16 ? 2 : 1;
-}
-
-struct Grid {
-  int gx, gy;
-  long long blocks() const { return (long long)gx * gy; }
-};
-
-Grid partial_grid(int n1, int n2) {
-  const int gy = (n1 + BY * ROWS_PER_THREAD - 1) / (BY * ROWS_PER_THREAD);
-  return Grid{(n2 + BX - 1) / BX, gy < MAX_GRID_Y ? gy : MAX_GRID_Y};
-}
-
-template <typename T, int MAXD, int KC>
-__global__ void __launch_bounds__(NT)
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(NT, MAXD <= 8 ? 2 : 1)
 matern32_vjp_partials_kernel(const T* __restrict__ x1,
                              const T* __restrict__ x2,
                              const T* __restrict__ inv_l,
@@ -108,119 +159,151 @@ matern32_vjp_partials_kernel(const T* __restrict__ x1,
                              const T* __restrict__ alpha, T beta, int same,
                              int q, int n1, int n2, int d,
                              double* __restrict__ partials) {
-  constexpr int NV = MAXD + 2;
-  __shared__ T s_x2[MAXD][BX];
-  __shared__ T s_inv[KC][MAXD];
-  __shared__ T s_alpha[KC];
-  __shared__ double s_red[NWARP][KC * NV];
+  using S = Stage<MAXD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* s_red = reinterpret_cast<double*>(smem);           // [NWARP][MAXD+2]
+  T* s_xi = reinterpret_cast<T*>(s_red + NWARP * (MAXD + 2));  // [TT][MAXD+1]
+  T* s_xj = s_xi + TT * (MAXD + 1);                          // [MAXD][TT]
+  T* s_ring = s_xj + MAXD * TT;                              // [NSTAGE][SIZE]
 
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  const int j = blockIdx.x * BX + threadIdx.x;
-  const int k0 = blockIdx.z * KC;
-  const int kc = min(KC, q - k0);
+  const int tid = threadIdx.x;
+  const int tx = tid % BX, ty = tid / BX;
+  int ti, tj;
+  lcgp::tile_of(blockIdx.x, same, (int)((n2 + TT - 1) / TT), ti, tj);
+  const int i0 = ti * TT, j0 = tj * TT;
   const long long plane = (long long)n1 * n2;
+  const int nv = d + 2;
 
-  for (int e = tid; e < MAXD * BX; e += NT) {
-    const int t = e / BX, c = e % BX;
-    const int jj = blockIdx.x * BX + c;
-    s_x2[t][c] = (t < d && jj < n2) ? x2[(long long)jj * d + t] : T(0);
+  for (int e = tid; e < TT * MAXD; e += NT) {
+    const int r = e / MAXD, t = e % MAXD;
+    s_xi[r * (MAXD + 1) + t] =
+        (t < d && i0 + r < n1) ? x1[(long long)(i0 + r) * d + t] : T(0);
   }
-  for (int e = tid; e < KC * MAXD; e += NT) {
-    const int kk = e / MAXD, t = e % MAXD;
-    s_inv[kk][t] =
-        (kk < kc && t < d) ? inv_l[(long long)(k0 + kk) * d + t] : T(0);
-  }
-  if (tid < KC) {
-    s_alpha[tid] = (tid < kc && alpha) ? alpha[k0 + tid] : T(1);
-  }
-  __syncthreads();
-
-  double acc[KC][NV];
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-#pragma unroll
-    for (int v = 0; v < NV; ++v) acc[kk][v] = 0.0;
+  for (int e = tid; e < MAXD * TT; e += NT) {
+    const int t = e / TT, c = e % TT;
+    s_xj[t * TT + c] =
+        (t < d && j0 + c < n2) ? x2[(long long)(j0 + c) * d + t] : T(0);
   }
 
-  if (j < n2) {
-    T wj[KC];
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      wj[kk] = (w && kk < kc) ? w[(long long)(k0 + kk) * n2 + j] : T(0);
+  // stage st: component st / NSTRIP, rows (st % NSTRIP) * SR.. of the tile
+  auto prefetch = [&](int st) {
+    T* buf = s_ring + (st % NSTAGE) * S::SIZE;
+    const int k = st / NSTRIP;
+    const int r0 = i0 + (st % NSTRIP) * SR;
+    const T* Mk = M + k * plane;
+    for (int e = tid; e < SR * TT; e += NT) {
+      const int r = e / TT, c = e % TT;
+      const bool ok = r0 + r < n1 && j0 + c < n2;
+      cp_async(buf + S::A + e,
+               ok ? Mk + (long long)(r0 + r) * n2 + (j0 + c) : M, ok);
     }
-    for (int i = blockIdx.y * BY + threadIdx.y; i < n1;
-         i += gridDim.y * BY) {
-      T diff[MAXD];
+    if (same) {
+      for (int e = tid; e < TT * SR; e += NT) {
+        const int c = e / SR, r = e % SR;
+        const bool ok = j0 + c < n1 && r0 + r < n1;
+        cp_async(buf + S::B + c * BP + r,
+                 ok ? Mk + (long long)(j0 + c) * n2 + (r0 + r) : M, ok);
+      }
+    }
+    if (w) {
+      const T* wk = w + (long long)k * n1;
+      for (int e = tid; e < SR + TT; e += NT) {
+        const int g = e < SR ? r0 + e : j0 + (e - SR);
+        const bool ok = g < n1;
+        cp_async(buf + (e < SR ? S::WI + e : S::WJ + (e - SR)),
+                 ok ? wk + g : w, ok);
+      }
+    }
+    if (tid < d) cp_async(buf + S::INV + tid, inv_l + (long long)k * d + tid,
+                          true);
+    if (tid == NT - 1) {
+      if (alpha) {
+        cp_async(buf + S::ALPHA, alpha + k, true);
+      } else {
+        buf[S::ALPHA] = T(1);
+      }
+    }
+  };
+
+  double acc[MAXD + 2];
+#pragma unroll
+  for (int v = 0; v < MAXD + 2; ++v) acc[v] = 0.0;
+
+  const int nst = q * NSTRIP;
+#pragma unroll
+  for (int p = 0; p < NSTAGE - 1; ++p) {
+    if (p < nst) prefetch(p);
+    cp_async_commit();
+  }
+
+  for (int st = 0; st < nst; ++st) {
+    if (st + NSTAGE - 1 < nst) prefetch(st + NSTAGE - 1);
+    cp_async_commit();
+    cp_async_wait<NSTAGE - 1>();
+    __syncthreads();
+
+    const T* buf = s_ring + (st % NSTAGE) * S::SIZE;
+    const T a_k = buf[S::ALPHA];
+    const int rs = (st % NSTRIP) * SR;    // first row of the strip in the tile
+    // two entries at a time: their chains interleave within 128 registers
+#pragma unroll 2
+    for (int m = 0; m < RPT; ++m) {
+      const int r = ty + BY * m;
+      const int i = i0 + rs + r, j = j0 + tx;
+      // same: i > j in pairs, i == j once, i < j left to the pair
+      const bool active = i < n1 && j < n2 && (!same || i >= j);
+      const bool on_diag = same && i == j;
+      const bool pair = same && i > j;
+      T mv = buf[S::A + r * TT + tx];
+      if (pair) mv = mv + buf[S::B + tx * BP + r];
+      T cb = a_k * mv;
+      if (w) {
+        const T bw = pair ? T(2) * beta : beta;
+        cb = cb + (bw * buf[S::WI + r]) * buf[S::WJ + tx];
+      }
+      cb = active ? cb : T(0);
+
+      T diff[MAXD], s[MAXD], pre[MAXD], prod, ssum;
 #pragma unroll
       for (int t = 0; t < MAXD; ++t) {
-        diff[t] = t < d ? fabs(x1[(long long)i * d + t] - s_x2[t][threadIdx.x])
-                        : T(0);
+        diff[t] = lcgp::absdiff(s_xi[(rs + r) * (MAXD + 1) + t],
+                                s_xj[t * TT + tx]);
       }
-      const bool on_diag = same && (i == j);
-      const long long ij = (long long)i * n2 + j;
-
+      lcgp::factors<T, MAXD>(diff, buf + S::INV, d, s, pre, prod, ssum);
+      const T e = lcgp::decay(ssum);
+      acc[0] += (double)(cb * lcgp::c0_of(prod, e));
+      acc[1] += on_diag ? (double)cb : 0.0;
+      T suf = cb * e;   // cbar exp(-sum S) prod_{u > t} (1 + S_u)
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        if (kk < kc) {
-          const int k = k0 + kk;
-          T cb = s_alpha[kk] * M[k * plane + ij];
-          if (w) cb = cb + beta * w[(long long)k * n1 + i] * wj[kk];
-          if (on_diag) {
-            // every S_t is exactly 0 on a same-point diagonal: C0 == 1 and
-            // the lengthscale terms vanish
-            acc[kk][0] += (double)cb;
-            acc[kk][1] += (double)cb;
-          } else {
-            // pre[t] = prod_{u < t} (1 + S_u); prod and ssum in K1's order
-            T pre[MAXD];
-            T prod = T(1), ssum = T(0);
-#pragma unroll
-            for (int t = 0; t < MAXD; ++t) {
-              if (t < d) {
-                const T s = diff[t] * s_inv[kk][t];
-                pre[t] = prod;
-                prod = prod * (T(1) + s);
-                ssum = ssum + s;
-              }
-            }
-            const T e = exp_t(-ssum);
-            const T c0 = prod * e;
-            const T ce = cb * e;
-            acc[kk][0] += (double)(cb * c0);
-            T suf = T(1);   // prod_{u > t} (1 + S_u)
-#pragma unroll
-            for (int t = MAXD - 1; t >= 0; --t) {
-              if (t < d) {
-                const T s = diff[t] * s_inv[kk][t];
-                acc[kk][2 + t] += (double)(ce * (s * s) * (pre[t] * suf));
-                suf = suf * (T(1) + s);
-              }
-            }
-          }
+      for (int t = MAXD - 1; t >= 0; --t) {
+        if (t < d) {
+          acc[2 + t] += (double)((pre[t] * suf) * s[t] * s[t]);
+          suf = lcgp::fma_rn(suf, s[t], suf);
         }
       }
     }
-  }
 
-  const int lane = tid & 31, warp = tid >> 5;
+    if (st % NSTRIP == NSTRIP - 1) {
+      // the component is summed over the tile: reduce the block
+      const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
+      for (int v = 0; v < MAXD + 2; ++v) {
+        if (v < nv) {
+          const double tot = warp_sum(acc[v]);
+          if (lane == 0) s_red[warp * (MAXD + 2) + v] = tot;
+        }
+        acc[v] = 0.0;
+      }
+      __syncthreads();
+      if (tid < nv) {
+        double tot = 0.0;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const double s = warp_sum(acc[kk][v]);
-      if (lane == 0) s_red[warp][kk * NV + v] = s;
+        for (int wp = 0; wp < NWARP; ++wp) tot += s_red[wp * (MAXD + 2) + tid];
+        const int k = st / NSTRIP;
+        partials[((long long)k * nv + tid) * gridDim.x + blockIdx.x] = tot;
+      }
     }
-  }
-  __syncthreads();
-  const long long nblk = (long long)gridDim.x * gridDim.y;
-  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const int nv = d + 2;
-  for (int e = tid; e < kc * nv; e += NT) {
-    const int kk = e / nv, v = e % nv;
-    double s = 0.0;
-#pragma unroll
-    for (int wp = 0; wp < NWARP; ++wp) s += s_red[wp][kk * NV + v];
-    partials[((long long)(k0 + kk) * nv + v) * nblk + blk] = s;
+    __syncthreads();
   }
 }
 
@@ -272,17 +355,18 @@ int launch_maxd(const T* x1, const T* x2, const T* inv_l, const T* amp,
                 const T* nug, const T* M, const T* w, const T* alpha, T beta,
                 int same, int q, int n1, int n2, int d, double* partials,
                 T* glens, T* gamp, T* gnug, cudaStream_t stream) {
-  constexpr int KC = comps_per_block<MAXD>();
-  const int gz = (q + KC - 1) / KC;
-  if (gz > MAX_GRID_Z) return (int)cudaErrorInvalidValue;
-  const Grid g = partial_grid(n1, n2);
-  matern32_vjp_partials_kernel<T, MAXD, KC>
-      <<<dim3(g.gx, g.gy, gz), dim3(BX, BY), 0, stream>>>(
-          x1, x2, inv_l, M, w, alpha, beta, same, q, n1, n2, d, partials);
-  const cudaError_t err = cudaGetLastError();
+  auto kernel = matern32_vjp_partials_kernel<T, MAXD>;
+  constexpr size_t bytes = smem_bytes<T, MAXD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long nblk = block_count(same, n1, n2);
+  kernel<<<(unsigned)nblk, NT, bytes, stream>>>(
+      x1, x2, inv_l, M, w, alpha, beta, same, q, n1, n2, d, partials);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   matern32_vjp_finish_kernel<T><<<q, NT, 0, stream>>>(
-      partials, g.blocks(), inv_l, amp, nug, same, d, glens, gamp, gnug);
+      partials, nblk, inv_l, amp, nug, same, d, glens, gamp, gnug);
   return (int)cudaGetLastError();
 }
 
@@ -293,7 +377,8 @@ int launch(const void* x1, const void* x2, const void* inv_l, const void* amp,
            void* partials, void* glens, void* gamp, void* gnug,
            void* stream) {
   if (q <= 0 || n1 <= 0 || n2 <= 0 || d <= 0 || d > 32 ||
-      (w && n1 != n2)) {
+      (w && n1 != n2) || (same && n1 != n2) ||
+      block_count(same, n1, n2) > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
@@ -317,9 +402,11 @@ int launch(const void* x1, const void* x2, const void* inv_l, const void* amp,
 
 extern "C" {
 
-// Number of f64 scratch entries the caller allocates for the partial sums.
+// Number of f64 scratch entries the caller allocates for the partial sums:
+// (d + 2) per component and tile, counted over the whole rectangle of tiles,
+// which also covers a same-point call's triangle.
 long long lcgp_matern32_gram_vjp_scratch(int q, int n1, int n2, int d) {
-  return (long long)q * (d + 2) * partial_grid(n1, n2).blocks();
+  return (long long)q * (d + 2) * block_count(0, n1, n2);
 }
 
 int lcgp_matern32_gram_vjp_f64(const void* x1, const void* x2,

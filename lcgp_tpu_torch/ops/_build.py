@@ -93,9 +93,13 @@ def build() -> KernelLibrary:
         return _LIBRARY
     out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / "liblcgp_kernels.so"
+    log_path = out_dir / "build.log"
     t0 = time.perf_counter()
     log = ""
-    if not lib_path.exists():
+    if lib_path.exists():
+        # the compiler's report of the build that made this library
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         # one private work directory per build, renamed into place at the
@@ -129,6 +133,8 @@ def build() -> KernelLibrary:
                 raise RuntimeError(
                     f"nvcc link failed (exit {proc.returncode}): "
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            (work / log_path.name).write_text(log)
+            os.replace(work / log_path.name, log_path)
             os.replace(tmp, lib_path)
         finally:
             shutil.rmtree(work, ignore_errors=True)

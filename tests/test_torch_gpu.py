@@ -62,6 +62,46 @@ def test_kernel_matches_plain(dev, same, epilogue, d):
                            amp[:, None].expand(6, 300))
 
 
+@pytest.mark.parametrize('n', [1, 17, 1000, 4097])
+@pytest.mark.parametrize('epilogue,want_c0', [(False, False), (False, True),
+                                              (True, False), (True, True)])
+def test_kernel_same_point_is_symmetric_at_ragged_n(dev, n, epilogue,
+                                                    want_c0):
+    # K1 computes one triangle of tiles and mirrors it: the result must be
+    # exactly symmetric and match the plain version at sizes below, at and
+    # past a tile
+    q, d = 2, 8
+    x, _, ls, amp, nug = _inputs(dev, 30 + n, n, 1, d, q)
+    rs = torch.tensor([0.7, 2.5], dtype=torch.float64, device=dev) \
+        if epilogue else None
+    dv = torch.linspace(1.0, 2.0, q * n, dtype=torch.float64,
+                        device=dev).reshape(q, n) if epilogue else None
+    got, c0 = TM.launch_matern32(x, x, ls, amp, nug, same=True,
+                                 want_c0=want_c0, row_scale=rs, diag_vec=dv)
+    C, c0_ref = TM.matern32_gram_plain(x, x, ls, amp, nug, same=True,
+                                       want_c0=True)
+    ref = rs[:, None, None] * C + torch.diag_embed(dv) if epilogue else C
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.mT)
+    torch.testing.assert_close(got, ref, **F64_TOL)
+    if want_c0:
+        assert torch.equal(c0, c0.mT)
+        torch.testing.assert_close(c0, c0_ref, **F64_TOL)
+        assert bool((torch.diagonal(c0, dim1=-2, dim2=-1) == 1.0).all())
+    else:
+        assert c0 is None
+
+
+@pytest.mark.parametrize('n1,n2', [(1, 1), (17, 33), (64, 4096),
+                                   (1000, 977)])
+def test_kernel_cross_matches_plain_at_ragged_shapes(dev, n1, n2):
+    x1, x2, ls, amp, nug = _inputs(dev, 40 + n1, n1, n2, 8, 3)
+    got = TM.matern32_gram(x1, x2, ls, amp, nug, same=False)
+    ref = TM.matern32_gram_plain(x1, x2, ls, amp, nug, same=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **F64_TOL)
+
+
 def test_kernel_f32_matches_f64_plain(dev):
     x1, _, ls, amp, nug = _inputs(dev, 1, 257, 257, 8, 5)
     got = TM.matern32_gram(x1.float(), x1.float(), ls.float(), amp.float(),
@@ -182,6 +222,41 @@ def test_vjp_kernel_fused_matches_plain(dev, dtype):
         cbar=TM.fused_cotangent(M, alpha, -0.5, w))
     torch.cuda.synchronize()
     _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [1, 17, 65, 300])
+def test_vjp_kernel_pairs_a_nonsymmetric_cotangent(dev, dtype, n):
+    # same=True sums one triangle with cbar_ij + cbar_ji: exact for any
+    # cotangent, which a non-symmetric one pins
+    x, _, ls, amp, nug = _inputs(dev, 50 + n, n, 1, 8, 3)
+    cbar = torch.as_tensor(np.random.default_rng(n).standard_normal((3, n, n)),
+                           device=dev)
+    got = TM.launch_matern32_vjp(*(t.to(dtype) for t in (x, x, ls, amp, nug)),
+                                 same=True, M=cbar.to(dtype))
+    ref = TM.matern32_gram_vjp_plain(x, x, ls, amp, nug, same=True, cbar=cbar)
+    scale = TM.matern32_gram_vjp_scale(x, x, ls, amp, nug, same=True,
+                                       cbar=cbar)
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('n', [17, 1000])
+def test_vjp_kernel_fused_at_ragged_n(dev, n):
+    x, _, ls, amp, nug = _inputs(dev, 60 + n, n, 1, 8, 4)
+    rng = np.random.default_rng(60 + n)
+    M = torch.as_tensor(rng.standard_normal((4, n, n)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((4, n)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, 4), device=dev)
+    got = TM.matern32_gram_vjp_fused(x, ls, amp, nug, M=M, alpha=alpha,
+                                     beta=-0.5, w=w)
+    ref = TM.matern32_gram_vjp_fused_plain(x, ls, amp, nug, M=M, alpha=alpha,
+                                           beta=-0.5, w=w)
+    scale = TM.matern32_gram_vjp_scale(
+        x, x, ls, amp, nug, same=True,
+        cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[torch.float64])
 
 
 def test_vjp_kernel_is_deterministic_and_counts(dev):

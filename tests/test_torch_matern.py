@@ -130,6 +130,90 @@ class TestPublicMatern32:
             TM.Matern32(_t(x), _t(x) + 0.1, ls, amp, nug, diag_only=True)
 
 
+@pytest.mark.parametrize('impl', ['jax gram', 'port plain gram',
+                                  'port plain C0', 'port factor target'])
+def test_same_point_gram_is_exactly_symmetric(impl):
+    # K1 computes one triangle of a same-point Gram and mirrors it; that is
+    # exact only because every form of the Gram is exactly symmetric
+    x, _, ls, amp, nug = _inputs(8, n1=97, d=5, q=3)
+    if impl == 'jax gram':
+        g = np.asarray(JM.matern32_gram(jnp.asarray(x), jnp.asarray(x),
+                                        jnp.asarray(ls), jnp.asarray(amp),
+                                        jnp.asarray(nug), same=True))
+    elif impl == 'port factor target':
+        rng = np.random.default_rng(9)
+        g = TG.gram_factor_target(
+            _t(x), _t(ls), _t(amp), _t(nug),
+            row_scale=_t(rng.uniform(0.1, 10, 3)),
+            diag_vec=_t(rng.uniform(0.5, 2, (3, 97)))).numpy()
+    else:
+        c, c0 = TM.matern32_gram_plain(_t(x), _t(x), _t(ls), _t(amp),
+                                       _t(nug), same=True, want_c0=True)
+        g = (c if impl == 'port plain gram' else c0).numpy()
+    assert g.shape == (3, 97, 97)
+    np.testing.assert_array_equal(g, g.transpose(0, 2, 1))
+
+
+def _vjp_by_pairs(x, ls, amp, nug, cbar):
+    """The same-point Gram VJP summed over one triangle: i > j with
+    cbar_ij + cbar_ji, and the diagonal once (C0 = 1, no lengthscale
+    term), as K2 sums it."""
+    i, j = np.tril_indices(x.shape[0], k=-1)
+    s = np.abs(x[i] - x[j])[None] / ls[:, None, :]           # (q, pairs, d)
+    c0 = np.prod(1 + s, axis=2) * np.exp(-s.sum(axis=2))     # (q, pairs)
+    cb = cbar[:, i, j] + cbar[:, j, i]
+    diag = np.trace(cbar, axis1=1, axis2=2)
+    g0 = (cb * c0).sum(axis=1) + diag
+    g2 = np.einsum('qp,qpd->qd', cb * c0, s * s / (1 + s))
+    eta = nug / (1 + nug)
+    return (amp[:, None] * (1 - eta)[:, None] * g2 / ls,
+            (1 - eta) * g0 + eta * diag,
+            amp * (diag - g0) / (1 + nug) ** 2)
+
+
+@pytest.mark.parametrize('cotangent', ['non-symmetric', 'fused'])
+def test_vjp_pairwise_triangle_sum_matches_jax(cotangent):
+    # K2 sums one triangle with cbar_ij + cbar_ji: exact for any cotangent
+    x, _, ls, amp, nug = _inputs(10, n1=97, d=5, q=3)
+    rng = np.random.default_rng(10)
+    M = rng.standard_normal((3, 97, 97))
+    if cotangent == 'fused':
+        w = rng.standard_normal((3, 97))
+        alpha = rng.uniform(0.1, 5.0, 3)
+        cbar = TM.fused_cotangent(_t(M), _t(alpha), -0.5, _t(w)).numpy()
+    else:
+        cbar = M
+    got = _vjp_by_pairs(x, ls, amp, nug, cbar)
+    ref = JM.matern32_gram_vjp(jnp.asarray(x), jnp.asarray(x),
+                               jnp.asarray(ls), jnp.asarray(amp),
+                               jnp.asarray(nug), same=True,
+                               cbar=jnp.asarray(cbar))
+    scale = TM.matern32_gram_vjp_scale(_t(x), _t(x), _t(ls), _t(amp),
+                                       _t(nug), same=True, cbar=_t(cbar))
+    for name, g, r, s in zip(('glens', 'gamp', 'gnug'), got, ref, scale):
+        err = np.abs(g - np.asarray(r))
+        assert np.all(err <= 1e-12 * s.numpy()), (
+            f'{name}: max err/magnitude {np.max(err / s.numpy()):.3e}')
+
+
+@pytest.mark.parametrize('edited', ['matern32_common.cuh',
+                                    'matern32_gram.cu'])
+def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch,
+                                               edited):
+    # K1 and K2 share device code through a header: editing it must give a
+    # new build directory, so the library is rebuilt
+    import shutil
+    from lcgp_tpu_torch.ops import _build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert (csrc / 'matern32_common.cuh').exists()
+    monkeypatch.setattr(_build, 'CSRC_DIR', csrc)
+    before = _build._source_hash()
+    with open(csrc / edited, 'a') as f:
+        f.write('\n// edited\n')
+    assert _build._source_hash() != before
+
+
 def test_cpu_call_does_not_launch():
     x, _, ls, amp, nug = _inputs(6)
     before = TM.matern32_gram.launches
