@@ -12,16 +12,22 @@ Phases, each printing its own lines:
    per source, and print the build time and ptxas's registers, spills and
    shared memory per instantiation (a spill at MAXD <= 16 fails);
 3. hold K1 against its plain PyTorch version on the card at the main path's
-   shapes (f64 square with epilogue and C0, exactly symmetric; f64
-   rectangular), one ragged shape and the f32 instantiation; hold K2
-   against its plain version at the loss gradient's shape (fused cotangent
-   from a real B^{-1} and w, two launches bit for bit equal, and a random
-   non-symmetric cotangent), at moderate and at the fitted config-4
-   parameters, and at one ragged cross shape; time both kernels against
-   their plain versions with CUDA events and print each kernel's bound;
+   shapes (f64 square with epilogue and C0, exactly symmetric; the rep
+   path's epilogue, row scale 1 and a diagonal 1/(D_k r_i) that varies per
+   entry, exactly symmetric; f64 rectangular), one ragged shape and the
+   f32 instantiation; hold K2 against its plain version at the loss
+   gradient's shape (fused cotangent from a real B^{-1} and w, two launches
+   bit for bit equal, and a random non-symmetric cotangent), at moderate
+   and at the fitted config-4 parameters, at the rep loss gradient's
+   operating point (alpha 1/2, M = (C + Lam)^{-1}, w = u), and at one
+   ragged cross shape; time both kernels against their plain versions with
+   CUDA events and print each kernel's bound;
 4. run the port on the card at n=300 against the NumPy oracle
    ``tests/oracle.py`` (losses rtol 1e-9, predictions rtol 1e-7, the loss
-   gradient against central differences of the oracle rtol 1e-6);
+   gradient against central differences of the oracle rtol 1e-6), and the
+   rep path (``submethod='rep'``) at 200 unique sites with 1-5 replicates,
+   with and without ``rep_standardize_ybar`` and with a grouped error
+   structure, the same way;
 5. serving at BASELINE config 4 (n=4096, p=1000, q=20, d=8) with the fitted
    parameters in ``benchmarks/``: ``loss()``, the predictive aux, four
    ``predict(batch_size=64)`` requests and one ``return_fullcov`` request,
@@ -31,7 +37,19 @@ Phases, each printing its own lines:
    central differences, then ``fit(method='scipy', maxiter=20)``, counting
    K1 and K2 launches (one each per evaluation), the peak memory, the
    held-out RMSE of the short fit and a profile of one loss+grad
-   evaluation.
+   evaluation;
+7. rep serving at BASELINE config 5 (1000 unique sites x 10 replicates,
+   p=3, q=3, d=4) with its fitted parameters in ``benchmarks/``: ``loss()``,
+   the aux and ``predict`` at 400 held-out points on the card against the
+   same model on the CPU (the loss rtol 1e-9; outputs, factor and mks to
+   1e-9 of their largest entry, since cond(C + Lam) reaches 2.5e7 there)
+   and against lcgp_tpu's recorded loss and held-out RMSE;
+8. the rep path at full width (4096 unique sites x 10 replicates, N=40,960
+   raw rows, p=1000, q=20, d=8): construction with the grouping, one
+   loss+grad evaluation timed and checked against the plain kernels and
+   central differences, ``fit(method='scipy', maxiter=10)`` with K1 and K2
+   launches equal to nfev, the aux, 64-point requests, peak memory, the
+   held-out RMSE and a profile of one loss+grad evaluation.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call); the last
@@ -55,6 +73,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FITTED = ROOT / "benchmarks" / "fitted_params_large_field_n4096_p1000_q20.npz"
+FITTED_REP = ROOT / "benchmarks" / "fitted_params_rep_heavy_10k.npz"
+# lcgp_tpu's loss and held-out RMSE at config 5 with FITTED_REP, f64 on the
+# CPU; the NumPy oracle is not the yardstick there (its Woodbury
+# cancellation and explicit inv(C) lose ~1e-2 at amplitudes ~3e3)
+CONFIG5_LOSS = -4.393535528164473
+CONFIG5_RMSE = 0.013530078231167635
+# the rep fit's iteration cap at full width (phase 8)
+REP_MAXITER = 10
 K1_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram.cu"
 K1_REPLACES = "lcgp_tpu/ops/matern_pallas.py:200 (_fwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:27)"
 K2_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram_vjp.cu"
@@ -279,6 +305,20 @@ def compare(name, got, ref, rtol, atol):
     return max_abs
 
 
+def compare_normwise(name, got, ref, tol):
+    """Max abs error of got against ref as a share of max |ref|; fails
+    above ``tol``."""
+    import torch
+    err = float((got.double() - ref.double()).abs().max())
+    top = float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    say(f"  {name}: max_abs_err={err:.3e}, {err / top:.3e} of max |ref| "
+        f"{top:.3e} (bound {tol:.3e})")
+    check(err <= tol * top, f"{name}: error {err:.3e} above {tol:.3e} of "
+          f"max |ref| {top:.3e}")
+    return err
+
+
 def phase_kernels(dev, xs, x0s):
     """Phase 3: K1 against the plain version.  Returns the kernel record."""
     import torch
@@ -326,7 +366,27 @@ def phase_kernels(dev, xs, x0s):
                         matern32_gram_plain(xs, xs, ls, amp, nug, same=True),
                         F64_RTOL, F64_ATOL))
     del C_k
+    # the rep path's factor target: row scale 1 and a diagonal 1/(D_k r_i)
+    # that varies per entry (r_i replicate counts 1-10)
+    rep_rs = torch.ones(q, dtype=f64, device=dev)
+    rep_dv = 1.0 / (torch.as_tensor(10.0 ** rng.uniform(-1, 2, q), dtype=f64,
+                                    device=dev)[:, None]
+                    * torch.as_tensor(rng.integers(1, 11, n), dtype=f64,
+                                      device=dev)[None, :])
+    A_k = launch_matern32(xs, xs, ls, amp, nug, same=True, row_scale=rep_rs,
+                          diag_vec=rep_dv)[0]
+    A_p = linalg.add_diag(matern32_gram_plain(xs, xs, ls, amp, nug,
+                                              same=True), rep_dv)
     torch.cuda.synchronize()
+    errs.append(compare(f"f64 square, rep epilogue (row scale 1, diagonal "
+                        f"1/(D r), q={q}, n={n})", A_k, A_p, F64_RTOL,
+                        F64_ATOL))
+    check(torch.equal(A_k, A_k.mT), "K1's rep factor target is not exactly "
+          "symmetric")
+    say("  f64 square, rep epilogue, exactly symmetric: True")
+    del A_k, A_p, rep_rs, rep_dv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     stack = q * n * n * 8
     k_ms, p_ms = time_pair(f"f64 square+epilogue (aux/loss, q={q} n={n})",
                            raw_gram(lib, xs, xs, ls, amp, nug, True, rs, dv),
@@ -578,7 +638,9 @@ def phase_vjp(dev, x, y, free_np):
                                            matern32_gram_vjp_fused_plain,
                                            matern32_gram_vjp_plain,
                                            matern32_gram_vjp_scale)
+    from lcgp_tpu_torch.ops import linalg
     from lcgp_tpu_torch.ops._build import build
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
     lib = build().lib
     f64 = torch.float64
     m = LCGP(y, x, q=20, device=dev)
@@ -648,6 +710,33 @@ def phase_vjp(dev, x, y, free_np):
                 f"{generic_ms:.4f} ms")
         del cbar, got, ref, scale
         torch.cuda.empty_cache()
+
+    # the rep loss gradient's operating point: alpha = 1/2, M = (C + Lam)^-1
+    # with Lam = diag(1/(D r)), w = u = (C + Lam)^-1 Lam b, b = r a
+    ls, amp, nug, D, a = loss_operands(m, m.free)
+    r = torch.as_tensor(np.random.default_rng(9).integers(1, 11, n),
+                        dtype=f64, device=dev)
+    lam = (1.0 / (D[:, None] * r[None, :])).contiguous()
+    L = linalg.cholesky(gram_factor_target(xs, ls, amp, nug,
+                                           row_scale=torch.ones_like(D),
+                                           diag_vec=lam))
+    Tinv = linalg.chol_inverse(L)
+    u = linalg.cho_solve_vec(L, lam * r * a).contiguous()
+    del L
+    half = torch.full_like(D, 0.5)
+    got = launch_matern32_vjp(xs, xs, ls, amp, nug, same=True, M=Tinv,
+                              alpha=half, beta=-0.5, w=u)
+    ref = matern32_gram_vjp_fused_plain(xs, ls, amp, nug, M=Tinv, alpha=half,
+                                        beta=-0.5, w=u)
+    scale = matern32_gram_vjp_scale(xs, xs, ls, amp, nug, same=True,
+                                    cbar=fused_cotangent(Tinv, half, -0.5, u))
+    torch.cuda.synchronize()
+    errs.append(compare_vjp(
+        f"K2 fused f64 at the rep operating point (alpha 1/2, M = (C + "
+        f"Lam)^-1, w = u; r 1-10, q={q}, n={n}, d={d})", got, ref, scale,
+        lambda k: vjp_extended(xs, ls, amp, nug, k, Tinv, half, -0.5, u)))
+    del Tinv, u, lam, got, ref, scale
+    torch.cuda.empty_cache()
 
     # ragged cross shape: nothing divides the block sizes
     rr = np.random.default_rng(5)
@@ -1025,6 +1114,9 @@ def phase_train(dev, x, y, xte, ytrue):
     t0 = time.perf_counter()
     m.fit(method="scipy", maxiter=20)
     fit_s = sync_s(t0)
+    # the wrapper and m form a reference cycle, which would keep m and
+    # the aux it builds below alive past this phase
+    del m._loss_fn
     k1_fit, k2_fit = matern32_gram.launches, matern32_gram_vjp.launches
     res = m._fit_result
     say(f"  fit(method='scipy', maxiter=20): stop_reason={res.stop_reason!r} "
@@ -1058,6 +1150,365 @@ def phase_train(dev, x, y, xte, ytrue):
     profile_device("one loss+grad evaluation", lambda: vg(z_fit), 10)
     time_inverse(m)
     return k1_fit, k2_fit, per_eval
+
+
+def rep_problem(seed, n_unique, d, p, n0, max_reps):
+    """Raw replicated data: n_unique sites with 1..max_reps replicates each
+    (each replicate draws its own noise), rows shuffled, and n0 held-out
+    points."""
+    rng = np.random.default_rng(seed)
+    xu = rng.uniform(0, 1, (n_unique + n0, d))
+    t = np.linspace(0, 1, p)[:, None]
+    f = (np.sin(2 * np.pi * (t + xu[:, :1].T)) * xu[:, 1:2].T
+         + np.cos(np.pi * t * xu[:, 2:3].T))
+    reps = rng.integers(1, max_reps + 1, n_unique)
+    x = np.repeat(xu[:n_unique], reps, axis=0)
+    y = np.repeat(f[:, :n_unique], reps, axis=1)
+    y = y + 0.1 * rng.standard_normal(y.shape)
+    order = rng.permutation(x.shape[0])
+    return x[order], y[:, order], xu[n_unique:]
+
+
+def rep_oracle_args(m):
+    """(constrained params, RepData fields, error structure) of a rep model,
+    as ``oracle.neglpost_rep_np`` takes them."""
+    from lcgp_tpu_torch.models import params as P
+
+    def h(a):
+        return a.detach().cpu().numpy()
+    dat = m._data
+    return ((*(h(v) for v in P.constrain(m.free)),),
+            (h(dat.xs), h(dat.ybar), h(dat.scale), h(dat.r), h(dat.phi),
+             h(dat.diag_D), m.diag_error_structure))
+
+
+def phase_oracle_rep(dev):
+    """Phase 4, rep path: the port on the card against the NumPy oracle at
+    n_unique=200 (replicate counts 1-5), p=20, q=4, both
+    rep_standardize_ybar settings and a grouped error structure: loss rtol
+    1e-9, predictions rtol 1e-7 (atol 1e-9), the gradient against central
+    differences of ``oracle.neglpost_rep_np`` rtol 1e-6."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import oracle
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.models import likelihood as lik
+    from lcgp_tpu_torch.models import params as P
+    x, y, x0 = rep_problem(10, 200, 3, 20, 30, 5)
+    for case, (std, des) in enumerate(((True, None), (False, None),
+                                       (True, [5, 5, 10]))):
+        m = LCGP(y, x, q=4, submethod="rep", rep_standardize_ybar=std,
+                 diag_error_structure=des, device=dev)
+        rng = np.random.default_rng(20 + case)
+        m.set_params(lLmb=rng.uniform(0.2, 1.5, (4, 3)),
+                     lLmb0=rng.uniform(0.5, 3.0, 4),
+                     lnugGPs=rng.uniform(1e-6, 1e-3, 4))
+        label = (f"rep_standardize_ybar={std}, diag_error_structure="
+                 f"{m.diag_error_structure if des else 'ones'}")
+        say(f"  {label}: n_unique={m.n} of N={x.shape[0]} rows")
+        params, data = rep_oracle_args(m)
+        loss = float(m.loss())
+        loss_ref = oracle.neglpost_rep_np(*params, *data)
+        loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+        say(f"  loss {loss:.12g} vs oracle {loss_ref:.12g}: rel "
+            f"{loss_rel:.3e}")
+        check(loss_rel <= 1e-9, "rep loss differs from the oracle beyond "
+              "rtol 1e-9")
+        out = [o.cpu().numpy() for o in m.predict(x0)]
+        ref = oracle.predict_rep_np(
+            *params, *data, m.ybar_mean.cpu().numpy(),
+            m.ybar_std.cpu().numpy(), std,
+            m._standardize_x0(x0).cpu().numpy())
+        for name, a, b in zip(("mean", "predvar", "confvar"), out, ref):
+            err = np.abs(a - b)
+            rel = float(np.max(err / np.maximum(np.abs(b), 1e-300)))
+            say(f"  {name}: max_abs_err={float(err.max()):.3e} "
+                f"max_rel_err={rel:.3e}")
+            # atol 1e-9: the oracle's explicit inv(C) (lcgp_tpu's own rep
+            # oracle bar, tests/test_predict.py:127)
+            check(bool(np.all(err <= 1e-9 + 1e-7 * np.abs(b))),
+                  f"rep {name} differs from the oracle beyond rtol 1e-7, "
+                  "atol 1e-9")
+
+        free = P.FreeParams(*(t.clone().requires_grad_(True) for t in m.free))
+        v = lik.neglpost_rep(free, m._data, jitter=m._jitter)
+        g = np.concatenate([t.cpu().numpy().ravel()
+                            for t in torch.autograd.grad(v, free)])
+        shapes = [tuple(t.shape) for t in m.free]
+        cuts = np.cumsum([int(np.prod(sh)) for sh in shapes])[:-1]
+
+        def f(z):
+            lLmb, lLmb0, lsig, lnug = (part.reshape(sh) for part, sh in
+                                       zip(np.split(z, cuts), shapes))
+            return oracle.neglpost_rep_np(
+                softclip_np(lLmb, P.LLMB_CLIP),
+                softclip_np(lLmb0, P.LLMB0_CLIP), lsig,
+                softclip_np(lnug, P.LNUG_CLIP), *data)
+        z0 = np.concatenate([t.cpu().numpy().ravel() for t in m.free])
+        directional_check("rep gradient vs oracle", f, z0, g, ndir=3,
+                          rtol=1e-6, seed=30 + case, h=1e-3)
+
+
+def config5():
+    """BASELINE config 5, exactly as benchmarks/run_configs.py:config5: 1000
+    unique sites x 10 replicates (N=10,000), p=3, d=4, and 400 held-out
+    points with their noise-free truth."""
+    rng = np.random.default_rng(7)
+    n_unique, reps = 1000, 10
+    xu = rng.uniform(0, 1, (n_unique, 4))
+    f = np.vstack([np.sin(2 * np.pi * xu[:, 0]) * xu[:, 1],
+                   np.cos(np.pi * xu[:, 2]) + xu[:, 3] ** 2,
+                   xu[:, 0] * xu[:, 2]])
+    noise = np.array([0.05, 0.1, 0.2])
+    x = np.repeat(xu, reps, axis=0)
+    y = (np.repeat(f, reps, axis=1)
+         + rng.standard_normal((3, n_unique * reps)) * noise[:, None])
+    xte = rng.uniform(0, 1, (400, 4))
+    fte = np.vstack([np.sin(2 * np.pi * xte[:, 0]) * xte[:, 1],
+                     np.cos(np.pi * xte[:, 2]) + xte[:, 3] ** 2,
+                     xte[:, 0] * xte[:, 2]])
+    return x, y, xte, fte
+
+
+def phase_rep_serve(dev):
+    """Phase 7: rep serving at BASELINE config 5 with its committed fit,
+    on the card against the same model on the CPU (plain versions) and
+    against lcgp_tpu's recorded loss and held-out RMSE.  Returns the K1
+    launches of the card's run."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.ops.matern import matern32_gram
+    x, y, xte, fte = config5()
+    with np.load(FITTED_REP, allow_pickle=False) as z:
+        free_np = tuple(z[k] for k in ("lLmb", "lLmb0", "lsigma2s", "lnugGPs"))
+    kw = dict(submethod="rep", diag_error_structure=[1, 1, 1])
+    cpu = LCGP(y, x, device="cpu", **kw)
+    cpu.free = free_params_from_numpy(*free_np, "cpu")
+    loss_cpu = float(cpu.loss())
+    out_cpu = cpu.predict(xte)
+
+    torch.cuda.synchronize()
+    matern32_gram.launches = 0
+    t0 = time.perf_counter()
+    m = LCGP(y, x, device=dev, **kw)
+    m.free = free_params_from_numpy(*free_np, dev)
+    loss = float(m.loss())
+    m.compute_aux_predictive_quantities()
+    out = m.predict(xte)
+    fc = m.predict(xte[:8], return_fullcov=True)
+    torch.cuda.synchronize()
+    launches = matern32_gram.launches
+    say(f"  construct (N={x.shape[0]} rows -> n_unique={m.n}, q={m.q}), "
+        f"loss, aux, predict at {xte.shape[0]} points and one fullcov "
+        f"request: {time.perf_counter() - t0:.3f} s; K1 launches {launches}")
+    check(launches == 4, f"K1 launched {launches} times, expected 4 (loss, "
+          "aux, two requests)")
+    check(len(fc) == 4 and fc[3] is None,
+          "return_fullcov=True on the rep path does not give None")
+
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    ref_rel = abs(loss - CONFIG5_LOSS) / abs(CONFIG5_LOSS)
+    say(f"  loss {loss!r}: vs the port on the CPU rel {loss_rel:.3e}, vs "
+        f"lcgp_tpu's {CONFIG5_LOSS!r} rel {ref_rel:.3e}")
+    check(loss_rel <= 1e-9, "config-5 loss differs from the CPU run")
+    check(ref_rel <= 1e-9, "config-5 loss differs from lcgp_tpu's")
+    # Elementwise rtol 1e-9 is below this fit's conditioning: cond(C + Lam)
+    # reaches ~2.5e7, so factors of one A by two libraries differ by ~1e-12
+    # and the dual weights by up to ~1e-8 of their largest entry, which
+    # shows as 1e-7 relative in entries near zero.  The outputs, the factor
+    # and mks are held normwise, to 1e-9 of each one's largest entry; the
+    # dual weights per component to n eps cond(A_k), what a backward-stable
+    # factor of the same system allows.
+    aux, aux_cpu = m._ensure_aux(), cpu._ensure_aux()
+    for name in ("LT", "mks"):
+        compare_normwise(f"aux {name} vs the CPU run",
+                         getattr(aux, name).cpu(), getattr(aux_cpu, name),
+                         1e-9)
+    ev = torch.linalg.eigvalsh(aux_cpu.LT @ aux_cpu.LT.mT)
+    cond = (ev[:, -1] / ev[:, 0]).numpy()
+    eps_n = float(np.finfo(np.float64).eps) * m.n
+    for k in range(int(m.q)):
+        compare_normwise(f"aux CinvM[{k}] vs the CPU run (cond(A_k) "
+                         f"{cond[k]:.3e})", aux.CinvM[k].cpu(),
+                         aux_cpu.CinvM[k], eps_n * cond[k])
+    for name, a, b in zip(("ypred", "ypredvar", "yconfvar"), out, out_cpu):
+        compare_normwise(f"{name} vs the CPU run", a.cpu(), b, 1e-9)
+    rmse = float(np.sqrt(np.mean((out[0].cpu().numpy() - fte) ** 2)))
+    rmse_rel = abs(rmse - CONFIG5_RMSE) / CONFIG5_RMSE
+    say(f"  held-out RMSE over 400 points x 3 outputs: {rmse!r} vs "
+        f"lcgp_tpu's {CONFIG5_RMSE!r}: rel {rmse_rel:.3e}")
+    check(rmse_rel <= 1e-6, "config-5 RMSE differs from lcgp_tpu's")
+    per_call = {"rep_loss": launches_of(m.loss),
+                "rep_aux": launches_of(m.compute_aux_predictive_quantities)}
+    return launches, per_call
+
+
+def rep_full_width(n=4096, p=1000):
+    """n=4096 unique sites x 10 replicates (N=40,960 raw rows), p=1000,
+    d=8: the widths of bench.py's rep problem, whose replicate means carry
+    noise 0.05/sqrt(10); here each replicate draws its own 0.05 noise.
+    Plus 256 held-out points and their noise-free truth."""
+    rng = np.random.default_rng(1)
+    reps, d = 10, 8
+    xu = rng.uniform(0, 1, (n + 256, d))
+    t = np.linspace(0, 1, p)[:, None]
+    f = np.sin(2 * np.pi * (t + xu[:, :1].T))
+    x = np.repeat(xu[:n], reps, axis=0)
+    y = np.repeat(f[:, :n], reps, axis=1)
+    y += 0.05 * rng.standard_normal(y.shape)
+    return x, y, xu[n:], f[:, n:]
+
+
+def phase_rep_train(dev, n=4096, p=1000):
+    """Phase 8: the rep path at full width, f64: construction (grouping
+    included), one loss+grad evaluation timed and checked against the plain
+    kernels and central differences, ``fit(method='scipy',
+    maxiter=REP_MAXITER)`` with K1 and K2 launches equal to nfev, the aux,
+    64-point requests, peak memory, the held-out RMSE and a profile.
+    Returns the (K1, K2) launches of the fit and of the serving run, and
+    the launches per call."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    x, y, xte, ytrue = rep_full_width(n, p)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = LCGP(y, x, q=20, submethod="rep", device=dev)
+    build_s = sync_s(t0)
+    say(f"  LCGP(y_raw ({p}, {x.shape[0]}), x_raw, q=20, submethod='rep'): "
+        f"{build_s:.3f} s, grouping included -> n_unique={m.n}, r "
+        f"{int(m.r.min())}-{int(m.r.max())} (q_chunk={m.q_chunk})")
+    check(m.n == n and bool((m.r == 10).all()), "grouping went wrong")
+    loss_fn = m._loss_fn()
+    flat = Flattener(m.free)
+    vg = value_and_grad(loss_fn, flat)
+    z0 = flat.ravel(m.free).cpu().numpy()
+
+    t0 = time.perf_counter()
+    v0, g0 = vg(z0)
+    first_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vg(z0)
+        warm.append(time.perf_counter() - t0)
+    per_eval = launches_of(lambda: vg(z0))
+    say(f"  rep loss+grad evaluation: first {first_s:.4f} s, warm median "
+        f"{statistics.median(warm):.4f} s of 5 ("
+        + ", ".join(f"{t:.4f}" for t in warm) + f"); launches {per_eval}")
+    check(np.isfinite(v0) and bool(np.isfinite(g0).all()),
+          "rep loss+grad at the init not finite")
+
+    k1, k2 = matern32_gram.launches, matern32_gram_vjp.launches
+    with plain_kernels():
+        vp, gp = vg(z0)
+    check((matern32_gram.launches, matern32_gram_vjp.launches) == (k1, k2),
+          "the plain reference launched a kernel")
+    loss_rel = abs(v0 - vp) / abs(vp)
+    say(f"  rep loss {v0:.12e} vs plain kernels {vp:.12e}: rel "
+        f"{loss_rel:.3e}")
+    check(loss_rel <= 1e-10, "rep loss differs from the plain kernels' loss")
+    start = 0
+    for name, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
+                          flat.sizes):
+        a, b = g0[start:start + size], gp[start:start + size]
+        start += size
+        err, top = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+        say(f"  rep gradient {name}: max_abs_err={err:.3e} vs the plain "
+            f"kernels (max |g| {top:.3e}, rel {err / top:.3e})")
+        check(err <= GRAD_RTOL * top, f"rep gradient {name} differs from the "
+              f"plain kernels' beyond {GRAD_RTOL:g} of its max |g|")
+    del vp, gp
+    torch.cuda.empty_cache()
+
+    def f(z):
+        with torch.no_grad():
+            return float(loss_fn(flat.unravel_host(z)))
+    directional_check("rep gradient vs central differences", f, z0, g0,
+                      ndir=3, rtol=1e-5, seed=11, h=1e-3)
+
+    losses = []
+
+    def recording_loss_fn(real=m._loss_fn):
+        fn = real()
+
+        def loss(free):
+            v = fn(free)
+            losses.append(v.detach())
+            return v
+        return loss
+    m._loss_fn = recording_loss_fn
+    l_init = float(m.loss())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matern32_gram.launches = 0
+    matern32_gram_vjp.launches = 0
+    t0 = time.perf_counter()
+    m.fit(method="scipy", maxiter=REP_MAXITER)
+    fit_s = sync_s(t0)
+    del m._loss_fn     # the reference cycle, as in phase 6
+    k1_fit, k2_fit = matern32_gram.launches, matern32_gram_vjp.launches
+    res = m._fit_result
+    say(f"  fit(method='scipy', maxiter={REP_MAXITER}): stop_reason="
+        f"{res.stop_reason!r} nit={res.nit} nfev={res.nfev} in {fit_s:.3f} s "
+        f"({fit_s / res.nfev:.4f} s per evaluation, "
+        f"{fit_s / max(res.nit, 1):.4f} s per iteration); loss "
+        f"{l_init:.10g} -> {res.fun:.10g}")
+    say(f"  K1 launches in the rep fit: {k1_fit}; K2 launches: {k2_fit}")
+    check((k1_fit, k2_fit) == (res.nfev, res.nfev), f"the rep fit launched "
+          f"K1 {k1_fit} and K2 {k2_fit} times in {res.nfev} evaluations")
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          "a loss in the rep fit was not finite")
+    check(res.fun < l_init, "the rep fit did not lower the loss")
+    say(f"  torch.cuda.max_memory_allocated over the rep fit (model "
+        f"included): {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    matern32_gram.launches = 0
+    t0 = time.perf_counter()
+    m.compute_aux_predictive_quantities()
+    aux_s = sync_s(t0)
+    req_s, outs = [], []
+    for s in range(0, 256, 64):
+        t0 = time.perf_counter()
+        outs.append(m.predict(xte[s:s + 64], batch_size=64))
+        req_s.append(sync_s(t0))
+    k1_serve = matern32_gram.launches
+    say(f"  rep aux {aux_s:.4f} s; predict(batch_size=64) requests "
+        + ", ".join(f"{r:.4f}" for r in req_s) + f" s; K1 launches {k1_serve}")
+    check(k1_serve == 5, f"rep serving launched K1 {k1_serve} times, "
+          "expected 5 (aux 1 + 4 requests)")
+    say(f"  torch.cuda.max_memory_allocated over rep serving (model "
+        f"included): {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    ypred, ypredvar, yconfvar = (torch.cat([o[i] for o in outs], dim=1)
+                                 for i in range(3))
+    for name, a in (("ypred", ypred), ("ypredvar", ypredvar),
+                    ("yconfvar", yconfvar)):
+        check(bool(torch.isfinite(a).all()), f"rep path: {name} not finite")
+    check(tuple(ypred.shape) == ytrue.shape, f"ypred {tuple(ypred.shape)}")
+    check(bool((ypredvar > 0).all()), "rep path: predvar not positive")
+    rmse = float(np.sqrt(np.mean((ypred.cpu().numpy() - ytrue) ** 2)))
+    say(f"  held-out RMSE after the {REP_MAXITER}-iteration rep fit, 256 "
+        f"points x {p} outputs: {rmse:.6f}")
+    warm_timings(m, xte)
+    per_call = {"rep_loss_grad": per_eval,
+                "rep_request": launches_of(
+                    lambda: m.predict(xte[:64], batch_size=64))}
+    z_fit = flat.ravel(m.free).cpu().numpy()
+    profile_device("one rep loss+grad evaluation", lambda: vg(z_fit), 10)
+    return (k1_fit, k2_fit), k1_serve, per_call
 
 
 def other_library(root):
@@ -1166,6 +1617,9 @@ def main() -> int:
 
     say("[4] port on the card vs the NumPy oracle (n=300, p=20, q=4)")
     phase_oracle(dev)
+    say("[4] rep path on the card vs the NumPy oracle (n_unique=200, "
+        "replicates 1-5, p=20, q=4)")
+    phase_oracle_rep(dev)
 
     say("[5] serving at config 4 (n=4096, p=1000, q=20, d=8, f64)")
     k1_serve, per_call = phase_main(dev, x, y, xte, ytrue, free_np)
@@ -1173,14 +1627,27 @@ def main() -> int:
     say("[6] training at config 4 (n=4096, p=1000, q=20, d=8, f64)")
     k1_fit, k2_fit, per_call["loss_grad"] = phase_train(dev, x, y, xte,
                                                          ytrue)
+
+    say("[7] rep serving at config 5 (n_unique=1000 x 10 replicates, p=3, "
+        "q=3, d=4, f64)")
+    k1_rep_serve5, rep_calls = phase_rep_serve(dev)
+    per_call.update(rep_calls)
+
+    say("[8] rep path at full width (4096 unique sites x 10 replicates, "
+        "p=1000, q=20, d=8, f64)")
+    (k1_rep_fit, k2_rep_fit), k1_rep_serve, rep_calls = phase_rep_train(dev)
+    per_call.update(rep_calls)
     say("  launches per call (K1, K2): " + ", ".join(
         f"{k} {v}" for k, v in per_call.items()))
-    check(per_call["loss_grad"] == (1, 1),
-          f"one loss+grad evaluation launched {per_call['loss_grad']}")
-    # the main paths: serving (phase 5) runs K1, the fit (phase 6) K1 and K2
+    for key in ("loss_grad", "rep_loss_grad"):
+        check(per_call[key] == (1, 1),
+              f"one {key} evaluation launched {per_call[key]}")
+    # the main paths: serving (phases 5, 7 and 8) runs K1, the fits
+    # (phases 6 and 8) K1 and K2
+    k1_main = k1_serve + k1_fit + k1_rep_serve5 + k1_rep_fit + k1_rep_serve
     for rec, i, launches, prefix in (
-            (record, 0, k1_serve + k1_fit, "matern32_gram_kernel"),
-            (record_vjp, 1, k2_fit, "matern32_vjp_")):
+            (record, 0, k1_main, "matern32_gram_kernel"),
+            (record_vjp, 1, k2_fit + k2_rep_fit, "matern32_vjp_")):
         rec["launches"] = launches
         rec["launches_per_eval"] = per_call["loss_grad"][i]
         rec["launches_per_call"] = {k: v[i] for k, v in per_call.items()}

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.likelihood import FullData
+from .models.likelihood import FullData, RepData
 from .models.params import FreeParams
 
 
@@ -29,11 +29,23 @@ def free_params_from_numpy(lLmb, lLmb0, lsigma2s, lnugGPs,
                       _f64(lsigma2s, device), _f64(lnugGPs, device))
 
 
+def _index(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=np.int64), device=device)
+
+
 def full_data_from_numpy(xs, ys, phi, diag_D, sigma_map, device) -> FullData:
     """Full-path training tensors -> the port's :class:`FullData`."""
     return FullData(xs=_f64(xs, device),
                     ys=_f64(ys, device), phi=_f64(phi, device),
                     diag_D=_f64(diag_D, device),
-                    sigma_map=torch.as_tensor(np.array(sigma_map,
-                                                       dtype=np.int64),
-                                              device=device))
+                    sigma_map=_index(sigma_map, device))
+
+
+def rep_data_from_numpy(xs, ybar, scale, r, phi, diag_D, sigma_map,
+                        device) -> RepData:
+    """Rep-path training tensors (the fields of the JAX package's
+    ``RepData``, in its order) -> the port's :class:`RepData`."""
+    return RepData(xs=_f64(xs, device), ybar=_f64(ybar, device),
+                   scale=_f64(scale, device), r=_f64(r, device),
+                   phi=_f64(phi, device), diag_D=_f64(diag_D, device),
+                   sigma_map=_index(sigma_map, device))

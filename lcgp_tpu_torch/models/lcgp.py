@@ -1,12 +1,11 @@
-"""The LCGP model class, full path (counterpart of
-``lcgp_tpu/models/lcgp.py``).
+"""The LCGP model class (counterpart of ``lcgp_tpu/models/lcgp.py``).
 
 Same constructor surface, parameter accessors, ``loss``/``fit``/``predict``,
-npz ``save``/``load`` format and fit checkpoints as ``lcgp_tpu.LCGP``, for
-``submethod='full'``, ``precision='high'`` (float64) and
-``kernel='matern32'``.  NumPy or tensors in, float64 tensors on ``device``
-out.  What is not ported yet raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+aux accessors, npz ``save``/``load`` format and fit checkpoints as
+``lcgp_tpu.LCGP``, for ``submethod='full'`` and ``'rep'``,
+``precision='high'`` (float64) and ``kernel='matern32'``.  NumPy or tensors
+in, float64 tensors on ``device`` out.  What is not ported yet raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -18,11 +17,13 @@ import torch
 
 from ..config import dtype_for, jitter_for
 from ..fit import minimize_adam, minimize_lbfgs
+from ..ops import linalg
 from . import basis as basis_mod
 from . import likelihood as lik
 from . import params as P
 from . import predict as pred
 from . import transforms as tx
+from .replication import group_replicates
 
 _F64 = torch.float64
 
@@ -37,7 +38,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class LCGP:
-    """Latent Component Gaussian Process (full path) in PyTorch."""
+    """Latent Component Gaussian Process in PyTorch."""
 
     def __init__(self,
                  y=None,
@@ -60,9 +61,6 @@ class LCGP:
             raise ValueError('LCGP requires both y (p, n) and x (n, d).')
         if submethod not in ('full', 'rep'):
             raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
-        if submethod == 'rep':
-            raise NotImplementedError(
-                "submethod='rep' is not ported yet (ROADMAP.md Queue 1 item 10)")
         if precision != 'auto':
             dtype_for(precision)      # ValueError for an unknown mode
         if precision != 'high':
@@ -107,12 +105,20 @@ class LCGP:
         self.x_orig = self.x
         self.y_orig = self.y
 
+        # x is standardized on the full inputs in both submethods
         self.x, self.x_min, self.x_max = tx.standardize_x(self.x)
-        self.y, self.ymean, self.ystd = tx.standardize_y(self.y,
-                                                         self.robust_mean)
+        if self.submethod == 'rep':
+            # self.y stays the raw (p, N) y: the noise init reads it
+            (self.x_unique, self.x_unique_s, self.group_ids, self.r,
+             self.ybar, self.ybar_s, self.ybar_mean,
+             self.ybar_std) = self._group(self.x_orig, self.y_orig)
+            self.n = int(self.x_unique.shape[0])
+        else:
+            self.y, self.ymean, self.ystd = tx.standardize_y(self.y,
+                                                             self.robust_mean)
 
         # SVD basis on the host; q is resolved there, shapes fixed after
-        b = basis_mod.init_phi(self.y.cpu().numpy(), q=self.q,
+        b = basis_mod.init_phi(self._get_phi_input().cpu().numpy(), q=self.q,
                                var_threshold=var_threshold)
         self.g = self._tensor(b.g)
         self.phi = self._tensor(b.phi)
@@ -142,9 +148,20 @@ class LCGP:
         self._params_version = 0
         self._aux = None
         self._aux_version = -1
-        self._data = lik.FullData(xs=self.x, ys=self.y, phi=self.phi,
-                                  diag_D=self.diag_D,
-                                  sigma_map=self._sigma_map)
+        self._data = self._build_data()
+
+    def _build_data(self):
+        if self.submethod == 'rep':
+            use_std = self.rep_standardize_ybar
+            scale = (self.ybar_std[:, 0] if use_std
+                     else torch.ones(int(self.p), dtype=_F64,
+                                     device=self.device))
+            return lik.RepData(xs=self.x_unique_s,
+                               ybar=self.ybar_s if use_std else self.ybar,
+                               scale=scale, r=self.r.to(_F64), phi=self.phi,
+                               diag_D=self.diag_D, sigma_map=self._sigma_map)
+        return lik.FullData(xs=self.x, ys=self.y, phi=self.phi,
+                            diag_D=self.diag_D, sigma_map=self._sigma_map)
 
     # ------------------------------------------------------------------
     # Display
@@ -212,8 +229,58 @@ class LCGP:
         return xs * (self.x_max - self.x_min) + self.x_min
 
     def tx_y(self, ys):
-        """Inverse y-standardization."""
+        """Inverse y-standardization: by ymean/ystd on the full path, by
+        ybar_mean/ybar_std on the rep path (the identity when
+        rep_standardize_ybar is off)."""
+        if self.submethod == 'rep':
+            if self.rep_standardize_ybar:
+                return ys * self.ybar_std + self.ybar_mean
+            return ys
         return ys * self.ystd + self.ymean
+
+    # ------------------------------------------------------------------
+    # Replication structures (reference lcgp.py:397-434)
+    # ------------------------------------------------------------------
+    @property
+    def R(self):
+        """diag(r) as a dense matrix, formed on demand."""
+        return torch.diag(self.r.to(_F64))
+
+    def _group(self, x_raw, y_raw):
+        """Group on the host; (x_unique, x_unique_s, group_ids, r, ybar,
+        ybar_s, ybar_mean, ybar_std) on the device.  x_unique_s is scaled
+        by the min/max of the full x; ybar is standardized per output row
+        with zero spreads floored to 1."""
+        rep = group_replicates(x_raw.cpu().numpy(), y_raw.cpu().numpy())
+        x_unique = self._tensor(rep.x_unique)
+        x_unique_s = ((x_unique - self.x_min)
+                      / (self.x_max - self.x_min)).contiguous()
+        ybar = self._tensor(rep.ybar)
+        ybar_mean, ybar_std = tx.center_spread(ybar, self.robust_mean,
+                                               floor_zero_spread=True)
+        return (x_unique, x_unique_s,
+                torch.as_tensor(rep.group_ids, device=self.device),
+                torch.as_tensor(rep.r, device=self.device), ybar,
+                (ybar - ybar_mean) / ybar_std, ybar_mean, ybar_std)
+
+    def preprocess(self, y_raw=None, x_raw=None):
+        """Replication structures as the reference's 12-tuple
+        (lcgp.py:397-426): x_unique, x_unique_s, group_ids, r, R, ybar,
+        ybar_s, ybar_mean, ybar_std, n_unique, d, p."""
+        x_raw = self.x_orig if x_raw is None else self._verify_data_types(x_raw)
+        y_raw = self.y_orig if y_raw is None else self._verify_data_types(y_raw)
+        g = self._group(x_raw, y_raw)
+        x_unique, r, ybar = g[0], g[3], g[4]
+        return (*g[:4], torch.diag(r.to(_F64)), *g[4:],
+                int(x_unique.shape[0]), int(x_unique.shape[1]),
+                int(ybar.shape[0]))
+
+    def _get_phi_input(self):
+        """What the SVD basis is built from: standardized y (full), ybar_s
+        or ybar (rep)."""
+        if self.submethod != 'rep':
+            return self.y
+        return self.ybar_s if self.rep_standardize_ybar else self.ybar
 
     # ------------------------------------------------------------------
     # Parameters
@@ -262,9 +329,12 @@ class LCGP:
     # Loss and fit
     # ------------------------------------------------------------------
     def loss(self) -> torch.Tensor:
-        """Negative log marginal posterior at the current parameters."""
-        return lik.neglpost_full(self._free, self._data, jitter=self._jitter,
-                                 q_chunk=self.q_chunk, kernel=self.kernel)
+        """Negative log marginal posterior at the current parameters (the
+        rep loss is divided by the number of unique sites)."""
+        neglpost = (lik.neglpost_rep if self.submethod == 'rep'
+                    else lik.neglpost_full)
+        return neglpost(self._free, self._data, jitter=self._jitter,
+                        q_chunk=self.q_chunk, kernel=self.kernel)
 
     def _loss_fn(self):
         return lik.make_loss(self.submethod, self._data, jitter=self._jitter,
@@ -276,7 +346,8 @@ class LCGP:
     def fit(self, verbose: bool = False, method: str = 'auto', **kwargs):
         """Optimize hyperparameters.
 
-        method='auto'  : 'scipy' uncapped (parity semantics) for n < 512;
+        method='auto'  : 'scipy' uncapped (parity semantics) for n < 512
+                         (n counts unique sites on the rep path);
                          at n >= 512 'scipy' with a plateau stop (halt when
                          the relative loss decrease over the last
                          plateau_patience=20 iterations is below
@@ -404,18 +475,78 @@ class LCGP:
     # ------------------------------------------------------------------
     # Prediction
     # ------------------------------------------------------------------
-    def _ensure_aux(self) -> pred.FullAux:
+    def _ensure_aux(self):
+        """The predictive aux (FullAux or RepAux) at the current
+        parameters, rebuilt after any parameter change."""
         if self._aux is None or self._aux_version != self._params_version:
             self._aux = None   # free the old factor before building the new
-            self._aux = pred.compute_aux_full(
-                self._free, self._data, jitter=self._jitter,
-                kernel=self.kernel, q_chunk=self.q_chunk)
+            compute = (pred.compute_aux_rep if self.submethod == 'rep'
+                       else pred.compute_aux_full)
+            self._aux = compute(self._free, self._data, jitter=self._jitter,
+                                kernel=self.kernel, q_chunk=self.q_chunk)
             self._aux_version = self._params_version
         return self._aux
 
     def compute_aux_predictive_quantities(self):
         self._aux = None
         self._ensure_aux()
+
+    # The aux accessors of lcgp_tpu (lcgp.py:1066-1152); each returns None
+    # on the submethod it does not belong to.
+    @property
+    def CinvMs(self):
+        """(q, n) dual weights."""
+        return self._ensure_aux().CinvM
+
+    @property
+    def LBs(self):
+        """Full path: chol(I + D_k C_k), the factor the predictions use."""
+        if self.submethod == 'rep':
+            return None
+        return self._ensure_aux().LB
+
+    @property
+    def Ths(self):
+        """Full path: the reference's Th_k (lcgp.py:709-715), the symmetric
+        square root of D_k (I + D_k C_k)^{-1}, rebuilt from ``LBs`` by one
+        batched eigh.  The predictions never form it."""
+        if self.submethod == 'rep':
+            return None
+        LB = self._ensure_aux().LB
+        wB, U = torch.linalg.eigh(LB @ LB.mT)           # B = U diag(wB) U^T
+        scal = torch.sqrt(self.diag_D[:, None] / wB)
+        return torch.einsum('qij,qj,qkj->qik', U, scal, U)
+
+    @property
+    def LTs(self):
+        """Rep path: chol(C_k + diag(1/(d_k r)))."""
+        if self.submethod != 'rep':
+            return None
+        return self._ensure_aux().LT
+
+    @property
+    def Tks(self):
+        """Rep path: the reference's T_k (lcgp.py:783-788), equal to
+        (C_k + (d_k R)^{-1})^{-1}, rebuilt from ``LTs`` on access."""
+        if self.submethod != 'rep':
+            return None
+        LT = self._ensure_aux().LT
+        eye = torch.eye(LT.shape[-1], dtype=LT.dtype, device=LT.device)
+        return linalg.cho_solve(LT, eye.expand_as(LT))
+
+    @property
+    def mks(self):
+        """Rep path: (q, n) latent means at the training sites."""
+        if self.submethod != 'rep':
+            return None
+        return self._ensure_aux().mks
+
+    @property
+    def psi_c(self):
+        """Rep path: (q, p) Phi^T Sigma_used^{-1/2}."""
+        if self.submethod != 'rep':
+            return None
+        return self._ensure_aux().psi_c
 
     def predict(self, x0, return_fullcov: bool = False,
                 batch_size: Optional[int] = None):
@@ -426,8 +557,10 @@ class LCGP:
         in one shot.  Not combined with return_fullcov.
         """
         x0 = self._verify_data_types(x0)
+        predict_call = (self.predict_rep if self.submethod == 'rep'
+                        else self.predict_full)
         if batch_size is None:
-            return self.predict_full(x0=x0, return_fullcov=return_fullcov)
+            return predict_call(x0=x0, return_fullcov=return_fullcov)
         if return_fullcov:
             raise ValueError('batch_size is not supported with '
                              'return_fullcov=True.')
@@ -438,7 +571,7 @@ class LCGP:
             pad = batch_size - blk.shape[0]
             if pad:
                 blk = torch.cat([blk, blk[-1:].repeat(pad, 1)])
-            out = self.predict_full(x0=blk, return_fullcov=False)
+            out = predict_call(x0=blk, return_fullcov=False)
             chunks.append([o[:, :batch_size - pad] if pad else o
                            for o in out])
         return tuple(torch.cat([c[i] for c in chunks], dim=1)
@@ -461,6 +594,26 @@ class LCGP:
             yfullpredcov = pred.fullcov_full(self._free, self._data, gvar,
                                              self.ystd)
             return ypred, ypredvar, yconfvar, yfullpredcov
+        return ypred, ypredvar, yconfvar
+
+    def predict_rep(self, x0, return_fullcov: bool = False):
+        aux = self._ensure_aux()
+        x0s = self._standardize_x0(x0)
+        ghat, gvar = pred.predict_rep_core(
+            self._free, self._data, aux, x0s, jitter=self._jitter,
+            kernel=self.kernel, q_chunk=self.q_chunk)
+        self.ghat, self.gvar = ghat, gvar
+        if self.rep_standardize_ybar:
+            mean, std = self.ybar_mean, self.ybar_std
+        else:
+            mean = torch.zeros_like(self.ybar_mean)
+            std = torch.ones_like(self.ybar_std)
+        ypred, ypredvar, yconfvar = pred.recombine_rep(
+            self._free, self._data, ghat, gvar, mean, std)
+        if return_fullcov:
+            # the full predictive covariance is full-path only
+            # (reference lcgp.py:928-929)
+            return ypred, ypredvar, yconfvar, None
         return ypred, ypredvar, yconfvar
 
     # ------------------------------------------------------------------

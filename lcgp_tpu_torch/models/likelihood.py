@@ -1,5 +1,5 @@
-"""Negative log marginal posterior, full path, with its gradient
-(counterpart of ``lcgp_tpu/models/likelihood.py``).
+"""Negative log marginal posteriors, full and replication paths, with
+their gradients (counterpart of ``lcgp_tpu/models/likelihood.py``).
 
 Per component k (C_k the Matérn Gram, D_k = diag_D[k], a_k = Y^T psi_ck):
 
@@ -20,6 +20,18 @@ cotangent (K2 on CUDA, which never forms it), and saves only the
 O(q (n + d)) results; the backward scales them.  The rest of the chain
 (SoftClip, sigma expansion, a = (Y^T psi_c)^T, the noise terms) is plain
 autograd.
+
+The replication path (``submethod='rep'``, unique sites with r_i
+replicates) has, with Lam_k = diag(1/(D_k r)) and A_k = C_k + Lam_k,
+
+    t_k = -0.5 b_k^T C_k u_k + 0.5 (sum_i log(D_k r_i) + logdet A_k),
+    u_k = A_k^{-1} Lam_k b_k,
+    dt/dC = 0.5 A^{-1} - 0.5 u u^T,   dt/db = -C u
+
+(``lcgp_tpu/models/likelihood.py:152-161``).  A is built directly (the K1
+epilogue with row scale 1 and diagonal lam + jitter), ``C u`` recovers as
+``Lam b - (lam + jitter) u``, and the gradient runs K2 at alpha = 1/2 and
+M = A^{-1}.
 """
 from __future__ import annotations
 
@@ -39,6 +51,22 @@ class FullData(NamedTuple):
     phi: torch.Tensor        # (p, q)
     diag_D: torch.Tensor     # (q,)
     sigma_map: torch.Tensor  # (p,) int64 output-dim -> error group
+
+
+class RepData(NamedTuple):
+    """Static training tensors for submethod='rep'.
+
+    ``scale`` is ybar_std when rep_standardize_ybar is on (then the noise
+    variance used is sigma2 / scale^2, reference lcgp.py:576-584) and ones
+    otherwise; ``ybar`` holds the matrix the loss consumes (standardized
+    or raw)."""
+    xs: torch.Tensor         # (n, d) standardized unique inputs
+    ybar: torch.Tensor       # (p, n) replicate-averaged outputs
+    scale: torch.Tensor      # (p,) ybar_std (or ones)
+    r: torch.Tensor          # (n,) float replicate counts
+    phi: torch.Tensor        # (p, q)
+    diag_D: torch.Tensor     # (q,)
+    sigma_map: torch.Tensor  # (p,) int64
 
 
 def _bmv(mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
@@ -156,15 +184,111 @@ def neglpost_full(free: P.FreeParams, data: FullData, jitter: float = 0.0,
     return nlp
 
 
+def _rep_terms_impl(jitter: float, kernel: str, xs, sr, lLmb, lLmb0, lnug,
+                    D, b, want_kernel_grad: bool = False):
+    """The rep component terms (qc,), -C u (the gradient in b), and, when
+    ``want_kernel_grad``, the gradients (glens, gamp, gnug) of the terms in
+    the kernel parameters."""
+    r2 = torch.square(sr)             # r through its square root, as JAX has it
+    lam = 1.0 / (D[:, None] * r2[None, :])                   # (qc, n)
+    # jitter scaled by the amplitude (0 under 'high')
+    diag_vec = (lam + jitter * (1.0 + lLmb0[:, None])).contiguous()
+    A = gram_factor_target(xs, lLmb, lLmb0, lnug, row_scale=torch.ones_like(D),
+                           diag_vec=diag_vec, kind=kernel)
+    LT = _factor(A)
+    del A
+    lam_b = lam * b
+    u = _factor_solve_vec(LT, lam_b)
+    Cu = lam_b - diag_vec * u                                # C u from A u
+    logdetA = (torch.sum(torch.log(D[:, None] * r2[None, :]), dim=-1)
+               + linalg.chol_logdet(LT))
+    terms = -0.5 * torch.sum(b * Cu, dim=-1) + 0.5 * logdetA
+    if not want_kernel_grad:
+        return terms, Cu, None
+    Tinv = linalg.chol_inverse(LT)                           # (C + Lam)^{-1}
+    del LT
+    # the cotangent 0.5 A^{-1} - 0.5 u u^T of the Gram
+    kgrad = gram_vjp_fused(xs, lLmb, lLmb0, lnug, M=Tinv,
+                           alpha=torch.full_like(D, 0.5), beta=-0.5,
+                           w=u.contiguous(), kind=kernel)
+    return terms, Cu, kgrad
+
+
+class _RepTerms(torch.autograd.Function):
+    """Rep component terms with the gradient formed in the forward, as
+    :class:`_FullTerms`: A^{-1} and the Gram VJP only for the inputs
+    ``ctx.needs_input_grad`` names."""
+
+    @staticmethod
+    def forward(ctx, jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b):
+        want = ctx.needs_input_grad
+        terms, Cu, kgrad = _rep_terms_impl(
+            jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b,
+            want_kernel_grad=any(want[4:7]))
+        glens0, gamp0, gnug0 = kgrad if kgrad is not None else (None,) * 3
+        ctx.save_for_backward(glens0, gamp0, gnug0,
+                              -Cu if want[8] else None)
+        return terms
+
+    @staticmethod
+    def backward(ctx, tbar):
+        glens0, gamp0, gnug0, bbar0 = ctx.saved_tensors
+
+        def scale(g, t):
+            return None if g is None else t.to(g.dtype) * g
+        return (None, None, None, None, scale(glens0, tbar[:, None]),
+                scale(gamp0, tbar), scale(gnug0, tbar), None,
+                scale(bbar0, tbar[:, None]))
+
+
+def _rep_terms(jitter: float, kernel: str, xs, sr, lLmb, lLmb0, lnug, D, b):
+    if not torch.is_grad_enabled():
+        return _rep_terms_impl(jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D,
+                               b)[0]
+    return _RepTerms.apply(jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b)
+
+
+def neglpost_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
+                 q_chunk: int | None = None, kernel: str = 'matern32'):
+    """Replication negative log marginal on the unique sites (reference
+    lcgp.py:554-630): sum_k t_k plus the diagonal data terms, all divided
+    by n, the number of unique sites."""
+    lLmb, lLmb0, lsig_g, lnug = P.constrain(free)
+    lsig = P.expand_sigma(lsig_g, data.sigma_map)          # (p,)
+    sigma_raw = torch.exp(lsig)
+    n = data.xs.shape[0]
+    p = data.ybar.shape[0]
+    r = data.r
+    sr = torch.sqrt(r)
+
+    sigma_var_used = sigma_raw / torch.square(data.scale)
+    sigma_inv_sqrt = data.scale / torch.sqrt(sigma_raw)    # (p,)
+
+    nlp = 0.5 * torch.sum(r * torch.sum(
+        torch.square(data.ybar * sigma_inv_sqrt[:, None]), dim=0))
+    nlp = nlp + 0.5 * n * torch.sum(torch.log(sigma_var_used))
+    nlp = nlp - 0.5 * p * torch.sum(torch.log(r))
+
+    v = data.phi * sigma_inv_sqrt[:, None]                 # (p, q)
+    b = r[None, :] * (data.ybar.T @ v).T                   # (q, n)
+
+    def body(stacks):
+        return _rep_terms(jitter, kernel, data.xs, sr, *stacks)  # (qc,)
+
+    terms = _map_components(body, (lLmb, lLmb0, lnug, data.diag_D, b),
+                            q_chunk)
+    nlp = nlp + torch.sum(terms).to(nlp.dtype)
+    return nlp / n
+
+
 def make_loss(submethod: str, data, jitter: float = 0.0,
               q_chunk: int | None = None, kernel: str = 'matern32'):
     """Return ``loss(free_params)`` for the given submethod."""
-    if submethod == 'full':
-        def loss(free):
-            return neglpost_full(free, data, jitter=jitter, q_chunk=q_chunk,
-                                 kernel=kernel)
-        return loss
-    if submethod == 'rep':
-        raise NotImplementedError(
-            "submethod='rep' is not ported yet (ROADMAP.md Queue 1 item 10)")
-    raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
+    if submethod not in ('full', 'rep'):
+        raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
+    neglpost = neglpost_full if submethod == 'full' else neglpost_rep
+
+    def loss(free):
+        return neglpost(free, data, jitter=jitter, q_chunk=q_chunk,
+                        kernel=kernel)
+    return loss

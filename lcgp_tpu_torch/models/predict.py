@@ -1,9 +1,13 @@
-"""Predictive distributions, full path (counterpart of
+"""Predictive distributions, full and replication paths (counterpart of
 ``lcgp_tpu/models/predict.py``).
 
 ``compute_aux_full`` stores L_Bk = chol(I + D_k C_k) and the dual weights
 (I + D_k C_k)^{-1} b_k; the posterior variance uses
 Th_k^2 = D_k (I + D_k C_k)^{-1}, i.e. one triangular solve per test block.
+``compute_aux_rep`` stores L_Tk = chol(C_k + diag(1/(D_k r))) and the dual
+weights (C_k + Lam_k)^{-1} Lam_k b_k, which equal the reference's
+``b - D R m`` without its cancellation; the posterior variance uses
+T_k = (C_k + Lam_k)^{-1} through the same factor.
 Components are processed in chunks of ``q_chunk`` by a Python loop, which
 bounds the (q_chunk, n, n) transients.
 """
@@ -17,12 +21,20 @@ from ..ops import linalg
 from ..ops.gram import gram_factor_target, gram_stack
 from ..ops.matern import matern32_diag
 from . import params as P
-from .likelihood import FullData, _bmv, _factor, _factor_solve_vec
+from .likelihood import FullData, RepData, _bmv, _factor, _factor_solve_vec
 
 
 class FullAux(NamedTuple):
     CinvM: torch.Tensor   # (q, n)
     LB: torch.Tensor      # (q, n, n) chol(I + D_k C_k)
+
+
+class RepAux(NamedTuple):
+    CinvM: torch.Tensor   # (q, n)
+    LT: torch.Tensor      # (q, n, n) chol(C_k + diag(1/(d_k r)))
+    mks: torch.Tensor     # (q, n) training-point latent means (diagnostic,
+                          # reference lcgp.py:779,800)
+    psi_c: torch.Tensor   # (q, p) Phi^T Sigma_used^{-1/2} (diagnostic)
 
 
 def _chunk_slices(q: int, q_chunk: int | None):
@@ -120,3 +132,92 @@ def fullcov_full(free: P.FreeParams, data: FullData, gvar, ystd):
     cov = cov + torch.diag(sigma)[None, :, :]
     ystd_vec = ystd[:, 0]
     return cov * (ystd_vec[:, None] * ystd_vec[None, :])[None, :, :]
+
+
+# ---------------------------------------------------------------------------
+# rep path
+# ---------------------------------------------------------------------------
+
+
+def _rep_sigma_inv_sqrt(free: P.FreeParams, data: RepData) -> torch.Tensor:
+    _, _, lsig_g, _ = P.constrain(free)
+    lsig = P.expand_sigma(lsig_g, data.sigma_map)
+    return data.scale / torch.sqrt(torch.exp(lsig))                # (p,)
+
+
+def _rep_b(free: P.FreeParams, data: RepData) -> torch.Tensor:
+    """(q, n) dual data vectors b_k (reference lcgp.py:606-610)."""
+    v = data.phi * _rep_sigma_inv_sqrt(free, data)[:, None]        # (p, q)
+    return data.r[None, :] * (data.ybar.T @ v).T
+
+
+def _rep_psi_c(free: P.FreeParams, data: RepData) -> torch.Tensor:
+    return data.phi.T * _rep_sigma_inv_sqrt(free, data)[None, :]   # (q, p)
+
+
+def compute_aux_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
+                    kernel: str = 'matern32',
+                    q_chunk: int | None = None) -> RepAux:
+    """Rep-path predictive aux: one factor of C + diag(1/(D r) + jitter)
+    shared by the dual weights and the variances, with the training loss's
+    jitter formula.
+
+    C is built on its own (one K1 launch on CUDA) and kept until the
+    training-point means ``mks = C @ CinvM`` are formed, as lcgp_tpu forms
+    them: the identity ``C u = Lam b - (lam + jitter) u`` the loss uses
+    cancels where Lam dominates C."""
+    lLmb, lLmb0, _, lnug = P.constrain(free)
+    b = _rep_b(free, data)
+    chunks = []
+    for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
+        C = gram_stack(data.xs, data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
+                       same=True, kind=kernel)
+        lam = 1.0 / (data.diag_D[s:e, None] * data.r[None, :])     # (qc, n)
+        A = linalg.add_diag(C, lam + jitter * (1.0 + lLmb0[s:e, None]))
+        LT = _factor(A)
+        del A
+        CinvM = _factor_solve_vec(LT, lam * b[s:e])                # (qc, n)
+        chunks.append((CinvM, LT, _bmv(C, CinvM)))
+        del C
+    CinvM, LT, mks = _cat(chunks)
+    return RepAux(CinvM=CinvM, LT=LT, mks=mks, psi_c=_rep_psi_c(free, data))
+
+
+def predict_rep_core(free: P.FreeParams, data: RepData, aux: RepAux, x0s,
+                     jitter: float = 0.0, kernel: str = 'matern32',
+                     q_chunk: int | None = None):
+    """Latent predictive mean/var at standardized x0s.  Returns (ghat, gvar),
+    each (q, n0); unlike the full path the variance has no D factor."""
+    lLmb, lLmb0, _, lnug = P.constrain(free)
+    c00 = matern32_diag(x0s, lLmb0)                                # (q, n0)
+    chunks = []
+    for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
+        c0 = gram_stack(x0s, data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
+                        same=False, kind=kernel)                   # (qc,n0,n)
+        ghat = _bmv(c0, aux.CinvM[s:e])
+        M = linalg.solve_tri_lower(aux.LT[s:e], c0.mT)
+        chunks.append((ghat, c00[s:e] - torch.sum(torch.square(M), dim=-2)))
+    return _cat(chunks)
+
+
+def recombine_rep(free: P.FreeParams, data: RepData, ghat, gvar,
+                  ybar_mean, ybar_std):
+    """Latent -> output space, rep variant (reference lcgp.py:902-926).
+    The caller passes ybar_mean/ybar_std, or zeros/ones when
+    rep_standardize_ybar is off."""
+    _, _, lsig_g, _ = P.constrain(free)
+    lsig = P.expand_sigma(lsig_g, data.sigma_map)
+    sigma_raw = torch.exp(lsig)
+
+    sigma_sqrt_used = torch.sqrt(sigma_raw) / data.scale
+    sigma_var_used = sigma_raw / torch.square(data.scale)
+
+    Psi = data.phi * sigma_sqrt_used[:, None]                     # (p, q)
+    predmean_used = Psi @ ghat                                    # (p, n0)
+    confvar_used = torch.square(Psi) @ gvar
+    predvar_used = confvar_used + sigma_var_used[:, None]
+
+    ypred = predmean_used * ybar_std + ybar_mean
+    yconfvar = confvar_used * torch.square(ybar_std)
+    ypredvar = predvar_used * torch.square(ybar_std)
+    return ypred, ypredvar, yconfvar

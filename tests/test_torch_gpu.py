@@ -348,3 +348,97 @@ def test_lcgp_fit_on_card_matches_cpu(dev):
     assert res.nit == cpu._fit_result.nit
     assert abs(res.fun - cpu._fit_result.fun) <= 1e-8 * abs(res.fun)
     assert all(t.device.type == 'cuda' for t in gpu.free)
+
+
+# ---------------------------------------------------------------------------
+# the replication path (submethod='rep'): K1 with a diagonal that varies per
+# entry, K2 at alpha = 1/2, and the model on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('n', [17, 300, 977])
+def test_kernel_rep_epilogue_matches_plain_and_is_symmetric(dev, n):
+    # row scale 1 and diag_vec = 1/(D_k r_i), r_i replicate counts 1-10
+    q = 3
+    x, _, ls, amp, nug = _inputs(dev, 70 + n, n, 1, 8, q)
+    rng = np.random.default_rng(70 + n)
+    D = torch.as_tensor(rng.uniform(0.1, 50.0, q), device=dev)
+    r = torch.as_tensor(rng.integers(1, 11, n), dtype=torch.float64,
+                        device=dev)
+    dv = (1.0 / (D[:, None] * r[None, :])).contiguous()
+    got, _ = TM.launch_matern32(x, x, ls, amp, nug, same=True,
+                                row_scale=torch.ones_like(D), diag_vec=dv)
+    ref = (TM.matern32_gram_plain(x, x, ls, amp, nug, same=True)
+           + torch.diag_embed(dv))
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.mT)
+    torch.testing.assert_close(got, ref, **F64_TOL)
+
+
+def test_vjp_kernel_fused_at_the_rep_operating_point(dev):
+    # alpha = 1/2, M = (C + Lam)^{-1}, w = u = M Lam b
+    from lcgp_tpu_torch.ops import linalg
+    q, n = 4, 300
+    x, _, ls, amp, nug = _inputs(dev, 80, n, 1, 8, q)
+    rng = np.random.default_rng(80)
+    D = torch.as_tensor(rng.uniform(0.5, 20.0, q), device=dev)
+    r = torch.as_tensor(rng.integers(1, 11, n), dtype=torch.float64,
+                        device=dev)
+    lam = 1.0 / (D[:, None] * r[None, :])
+    C = TM.matern32_gram_plain(x, x, ls, amp, nug, same=True)
+    L = linalg.cholesky(C + torch.diag_embed(lam))
+    M = linalg.chol_inverse(L)
+    b = torch.as_tensor(rng.standard_normal((q, n)), device=dev)
+    u = linalg.cho_solve_vec(L, lam * b).contiguous()
+    half = torch.full_like(D, 0.5)
+    got = TM.matern32_gram_vjp_fused(x, ls, amp, nug, M=M, alpha=half,
+                                     beta=-0.5, w=u)
+    ref = TM.matern32_gram_vjp_fused_plain(x, ls, amp, nug, M=M, alpha=half,
+                                           beta=-0.5, w=u)
+    scale = TM.matern32_gram_vjp_scale(
+        x, x, ls, amp, nug, same=True,
+        cbar=TM.fused_cotangent(M, half, -0.5, u))
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[torch.float64])
+
+
+def test_lcgp_rep_on_card_matches_cpu(dev):
+    from lcgp_tpu_torch.models import likelihood as TLik
+    from lcgp_tpu_torch.models import params as TP
+    rng = np.random.default_rng(7)
+    xu = rng.uniform(0, 1, (120, 3))
+    reps = rng.integers(1, 6, 120)
+    x = np.repeat(xu, reps, axis=0)
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 2],
+                   x[:, 0] * x[:, 2], np.sin(x.sum(1))])
+    y = y + 0.05 * rng.standard_normal(y.shape)
+    x0 = rng.uniform(0, 1, (20, 3))
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=3, submethod='rep', device=dev)
+    cpu = lcgp_tpu_torch.LCGP(y, x, q=3, submethod='rep', device='cpu')
+    assert gpu.n == cpu.n == 120
+
+    def grad(m):
+        free = TP.FreeParams(*(t.clone().requires_grad_(True)
+                               for t in m.free))
+        v = TLik.neglpost_rep(free, m._data)
+        return v, torch.autograd.grad(v, free)
+    k1, k2 = TM.matern32_gram.launches, TM.matern32_gram_vjp.launches
+    vg, gg = grad(gpu)
+    assert (TM.matern32_gram.launches, TM.matern32_gram_vjp.launches) == (
+        k1 + 1, k2 + 1)
+    vc, gc = grad(cpu)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-10, atol=0)
+    for a, b in zip(gg, gc):
+        assert a.device.type == 'cuda'
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-9 * float(b.abs().max()), err
+    torch.testing.assert_close(gpu.loss().cpu(), cpu.loss(), rtol=1e-10,
+                               atol=0)
+    for name in ('CinvMs', 'LTs', 'mks', 'psi_c'):
+        torch.testing.assert_close(getattr(gpu, name).cpu(),
+                                   getattr(cpu, name), rtol=1e-9, atol=1e-12)
+    out = gpu.predict(x0, return_fullcov=True)
+    assert out[3] is None
+    for a, b in zip(out[:3], cpu.predict(x0)):
+        assert a.device.type == 'cuda'
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)

@@ -364,17 +364,25 @@ def test_quad_chol_matches_jax():
 
 
 @pytest.mark.parametrize('submethod,err', [('full', None),
-                                           ('rep', NotImplementedError),
+                                           ('rep', None),
                                            ('nope', ValueError)])
 def test_make_loss(jm, submethod, err):
-    data = _data_of(jm)
     if err is not None:
         with pytest.raises(err):
-            TLik.make_loss(submethod, data)
+            TLik.make_loss(submethod, _data_of(jm))
         return
-    free = convert.free_params_from_numpy(*(np.asarray(v) for v in jm._free),
+    if submethod == 'rep':
+        # a rep model on the same inputs, two replicates of each site
+        x, y = _problem(0, n=40)
+        m = lcgp_tpu.LCGP(np.repeat(y, 2, axis=1), np.repeat(x, 2, axis=0),
+                          q=4, submethod='rep')
+        _fitted_like(m, 1)
+        data = convert.rep_data_from_numpy(*m._data, 'cpu')
+    else:
+        m, data = jm, _data_of(jm)
+    free = convert.free_params_from_numpy(*(np.asarray(v) for v in m._free),
                                           'cpu')
-    loss = TLik.make_loss('full', data, q_chunk=2)
+    loss = TLik.make_loss(submethod, data, q_chunk=2)
     np.testing.assert_allclose(_np(loss(free)),
-                               np.asarray(JLik.make_loss('full', jm._data)(
-                                   jm._free)), rtol=LOSS_RTOL)
+                               np.asarray(JLik.make_loss(submethod, m._data)(
+                                   m._free)), rtol=LOSS_RTOL)

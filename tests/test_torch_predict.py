@@ -294,7 +294,6 @@ def test_cpu_model_never_launches_the_kernel(pair):
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(submethod='rep'), 'item 10'),
     (dict(precision='fast'), 'item 11'),
     (dict(precision='mixed'), 'item 11'),
     (dict(precision='auto'), 'item 11'),
@@ -306,6 +305,22 @@ def test_unported_options_raise(kw, item):
     x, y, _ = _problem(5, n=20, p=3)
     with pytest.raises(NotImplementedError, match=item):
         lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', **kw)
+    # the unported options raise on the rep path too
+    with pytest.raises(NotImplementedError, match=item):
+        lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', submethod='rep', **kw)
+
+
+def test_rep_submethod_is_ported():
+    """submethod='rep' constructs and gives lcgp_tpu's loss and
+    predictions (tests/test_torch_rep.py holds the rest of the path)."""
+    x, y, x0 = _problem(5, n=20, p=3)
+    x, y = np.repeat(x, 2, axis=0), np.repeat(y, 2, axis=1)
+    tm = lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', submethod='rep')
+    jm = lcgp_tpu.LCGP(y, x, q=2, submethod='rep')
+    assert tm.submethod == 'rep' and tm.n == jm.n == 20
+    _close(tm.loss(), jm.loss(), rtol=LOSS_RTOL)
+    for a, b in zip(tm.predict(x0), jm.predict(x0)):
+        _close(a, b, **PRED_TOL)
 
 
 @pytest.mark.parametrize('kw,item', [
@@ -327,6 +342,17 @@ def test_invalid_options_raise_value_error(kw):
     x, y, _ = _problem(6, n=20, p=3)
     with pytest.raises(ValueError):
         lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', **kw)
+
+
+def test_full_path_aux_accessors_match_jax(pair):
+    """LBs and Ths (one batched eigh) on the full path; the rep-path
+    accessors are None there, as in lcgp_tpu."""
+    jm, tm, _ = pair
+    _close(tm.CinvMs, jm.CinvMs, **PRED_TOL)
+    _close(tm.LBs, jm.LBs, **PRED_TOL)
+    _close(tm.Ths, jm.Ths, rtol=1e-9, atol=1e-11)
+    for name in ('LTs', 'Tks', 'mks', 'psi_c'):
+        assert getattr(tm, name) is None and getattr(jm, name) is None
 
 
 def test_auto_q_chunk_model():
