@@ -49,10 +49,23 @@ Phases, each printing its own lines:
    loss+grad evaluation timed and checked against the plain kernels and
    central differences, ``fit(method='scipy', maxiter=10)`` with K1 and K2
    launches equal to nfev, the aux, 64-point requests, peak memory, the
-   held-out RMSE and a profile of one loss+grad evaluation.
+   held-out RMSE and a profile of one loss+grad evaluation;
+9. the precision modes at config 4: K1 f32 (square with the 'fast' loss's
+   epilogue, and the 64-point request shape) and K2 f32 (at the 'fast'
+   and the 'mixed' operating points) against their plain f32 versions,
+   timed with their bounds; 'mixed' at the committed fit (the ratchet,
+   the loss within rtol 1e-9 of 'high', refined predictions within 1e-7
+   of each output's largest entry, one K2 f32 launch per loss+grad);
+   'mixed''s gradient at the init within 5e-4 of 'high''s per leaf; a
+   'fast' ``fit(method='auto', maxiter=FAST_MAXITER)`` that must run
+   'lbfgs-jax' with K1 and K2 f32 launches equal to nfev, its aux and 20
+   requests; precision='auto' resolving to 'mixed'; and the three modes
+   timed side by side with a profile of a 'mixed' and a 'fast' loss+grad
+   evaluation.
 
 The line before the last is a JSON object with the kernel table (each
-kernel's times, bound, launches on the main paths and per call); the last
+kernel's times, bound, launches on the main paths and per call, the f32
+instantiations in rows of their own); the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines are printed.  With ``--against DIR`` (another checkout,
 e.g. the parent commit unpacked with ``git archive``) it builds both
@@ -81,6 +94,8 @@ CONFIG5_LOSS = -4.393535528164473
 CONFIG5_RMSE = 0.013530078231167635
 # the rep fit's iteration cap at full width (phase 8)
 REP_MAXITER = 10
+# the 'fast' fit's iteration cap at config 4 (phase 9)
+FAST_MAXITER = 20
 K1_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram.cu"
 K1_REPLACES = "lcgp_tpu/ops/matern_pallas.py:200 (_fwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:27)"
 K2_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram_vjp.cu"
@@ -92,10 +107,15 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-6
 # a DFMA counting as two flops and a DMUL or DADD taking the same slot
 HBM_BYTES_PER_S = 3.35e12
 F64_INSTR_PER_S = 17e12
+# float32 outside the tensor cores: 67 TFLOP/s, 33.5e12 f32 instructions/s
+F32_INSTR_PER_S = 33.5e12
 # K2's error in each of its sums, as a share of the sum of the magnitudes
 # of the sum's terms (matern32_gram_vjp_scale): the sums cancel near an
 # optimum, so an rtol on the result would say nothing
 VJP_BOUND = 1e-12
+# the same for K2's f32 instantiation (per-entry arithmetic in f32, sums in
+# f64; tests/test_torch_gpu.py's VJP_BOUND[float32])
+VJP_BOUND_F32 = 1e-5
 # the port's gradient against the plain kernels' gradient on the card: max
 # error per leaf, as a share of the leaf's max |g|
 GRAD_RTOL = 1e-9
@@ -129,23 +149,24 @@ def entries(n1, n2, same):
     return n1 * (n1 + 1) // 2 if same else n1 * n2
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, rate=F64_INSTR_PER_S):
     """The least time the card could take, in ms, and what sets it: each
-    input read and each output written once at the HBM rate, or the f64
-    instructions at the f64 rate."""
+    input read and each output written once at the HBM rate, or the
+    instructions at their dtype's rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F64_INSTR_PER_S * 1e3
+    by_ops = ops / rate * 1e3
     if by_bytes >= by_ops:
         return by_bytes, "bytes"
     return by_ops, "operations"
 
 
-def say_bound(label, ms, nbytes, ops):
+def say_bound(label, ms, nbytes, ops, rate=F64_INSTR_PER_S):
     """Prints a kernel's bound and the share of it the kernel reached."""
-    b_ms, by = bound(nbytes, ops)
+    b_ms, by = bound(nbytes, ops, rate)
+    kind = "f64" if rate == F64_INSTR_PER_S else "f32"
     say(f"  bound {label}: {b_ms:.4f} ms, set by {by} ({nbytes:.4e} bytes "
-        f"at 3.35 TB/s, {ops:.4e} f64 instructions at 17e12/s); the kernel's "
-        f"{ms:.4f} ms is {b_ms / ms:.1%} of the bound")
+        f"at 3.35 TB/s, {ops:.4e} {kind} instructions at {rate:.4g}/s); the "
+        f"kernel's {ms:.4f} ms is {b_ms / ms:.1%} of the bound")
     return b_ms, by
 
 
@@ -218,9 +239,10 @@ def ptr(t):
 
 def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
              diag_vec=None):
-    """A launch of K1 (f64) from ``lib`` through its C entry on buffers
-    allocated once: the kernel's time without the wrapper's host work
-    (checks, allocation, 1/l).  It counts no launch of the main path."""
+    """A launch of K1 (the instantiation of x1's dtype) from ``lib``
+    through its C entry on buffers allocated once: the kernel's time
+    without the wrapper's host work (checks, allocation, 1/l).  It counts
+    no launch of the main path."""
     import torch
     q, n1, n2, d = ls.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]
     out = torch.empty((q, n1, n2), dtype=x1.dtype, device=x1.device)
@@ -229,15 +251,18 @@ def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
             ptr(diag_vec), int(same), q, n1, n2, d, ptr(out), None,
             torch.cuda.current_stream(x1.device).cuda_stream)
 
+    fn = (lib.lcgp_matern32_gram_f64 if x1.dtype == torch.float64
+          else lib.lcgp_matern32_gram_f32)
+
     def launch():
-        check(lib.lcgp_matern32_gram_f64(*args) == 0, "K1 launch failed")
+        check(fn(*args) == 0, "K1 launch failed")
     # every buffer stays alive while the kernel may read or write it
     launch.buffers = (x1, x2, ls, amp, nug, row_scale, diag_vec, out, inv)
     return launch
 
 
 def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w):
-    """The same for K2 (f64, same-point) at the cotangent
+    """The same for K2 (same-point, x's dtype) at the cotangent
     alpha_k M_k + beta w_k w_k^T."""
     import torch
     q, n, d = ls.shape[0], x.shape[0], x.shape[1]
@@ -251,8 +276,11 @@ def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w):
             *(ptr(o) for o in outs),
             torch.cuda.current_stream(x.device).cuda_stream)
 
+    fn = (lib.lcgp_matern32_gram_vjp_f64 if x.dtype == torch.float64
+          else lib.lcgp_matern32_gram_vjp_f32)
+
     def launch():
-        check(lib.lcgp_matern32_gram_vjp_f64(*args) == 0, "K2 launch failed")
+        check(fn(*args) == 0, "K2 launch failed")
     launch.buffers = (x, ls, amp, nug, M, alpha, w, inv, outs, part)
     return launch
 
@@ -579,9 +607,9 @@ def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256):
             A * (g1 - g0) / (1 + N) ** 2)
 
 
-def compare_vjp(name, got, ref, scale, extended=None):
+def compare_vjp(name, got, ref, scale, extended=None, vjp_bound=VJP_BOUND):
     """K2's (glens, gamp, gnug) against the plain version's: each error at
-    most VJP_BOUND times the magnitude of its sum's terms.  Where the two
+    most ``vjp_bound`` times the magnitude of its sum's terms.  Where the two
     differ by more, and ``extended(k)`` is given, component k is
     recomputed in extended precision and K2 must be within the bound of
     that.  Returns the max abs error against the best reference."""
@@ -590,21 +618,21 @@ def compare_vjp(name, got, ref, scale, extended=None):
     flagged = set()
     for part, g, r, s in zip(("glens", "gamp", "gnug"), got, ref, scale):
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite K2 {part}")
-        out = (g - r).abs() > VJP_BOUND * s
+        out = (g.double() - r.double()).abs() > vjp_bound * s
         if extended is None:
             check(not bool(out.any()), f"{name}: {int(out.sum())} entries of "
-                  f"{part} outside {VJP_BOUND:g} x the magnitude of their "
+                  f"{part} outside {vjp_bound:g} x the magnitude of their "
                   "terms")
         flagged |= {int(i) for i in out.nonzero(as_tuple=True)[0]}
     keep = torch.ones(got[1].shape[0], dtype=torch.bool, device=got[1].device)
     keep[sorted(flagged)] = False
     for g, r, s in zip(got, ref, scale):
-        err = (g - r).abs()[keep]
+        err = (g.double() - r.double()).abs()[keep]
         if err.numel():
             worst = max(worst, float(err.max()))
             share = max(share, float((err / s[keep].clamp_min(1e-300)).max()))
     say(f"  {name}: max_abs_err={worst:.3e}, max err/magnitude={share:.3e} "
-        f"(bound {VJP_BOUND:g}) over the {int(keep.sum())} components where "
+        f"(bound {vjp_bound:g}) over the {int(keep.sum())} components where "
         f"K2 and plain agree; max |glens| {float(ref[0].abs().max()):.3e}, "
         f"max |gamp| {float(ref[1].abs().max()):.3e}")
     if flagged:
@@ -619,9 +647,9 @@ def compare_vjp(name, got, ref, scale, extended=None):
                 worst = max(worst, float(np.max(kerr)))
                 kshare = max(kshare, float(np.max(kerr / sk)))
                 pshare = max(pshare, float(np.max(perr / sk)))
-                check(bool(np.all(kerr <= VJP_BOUND * sk)),
+                check(bool(np.all(kerr <= vjp_bound * sk)),
                       f"{name}: K2 differs from the extended-precision sums "
-                      f"of component {k} beyond {VJP_BOUND:g} x magnitude")
+                      f"of component {k} beyond {vjp_bound:g} x magnitude")
         say(f"  {name}: components {sorted(flagged)} differ from plain; "
             f"against extended precision there, K2 err/magnitude="
             f"{kshare:.3e}, plain err/magnitude={pshare:.3e}")
@@ -990,7 +1018,9 @@ def plain_kernels():
     from lcgp_tpu_torch.ops.matern import (matern32_gram_plain,
                                            matern32_gram_vjp_fused_plain)
 
-    def factor_target(x, ls, amp, nug, *, row_scale, diag_vec, kind):
+    def factor_target(x, ls, amp, nug, *, row_scale, diag_vec, kind,
+                      compute_dtype=None):
+        check(compute_dtype is None, "plain_kernels is for precision 'high'")
         C = matern32_gram_plain(x, x, ls, amp, nug, same=True)
         return linalg.add_diag(row_scale[:, None, None] * C, diag_vec)
 
@@ -1149,7 +1179,7 @@ def phase_train(dev, x, y, xte, ytrue):
     check(np.isfinite(rmse), "RMSE not finite")
     profile_device("one loss+grad evaluation", lambda: vg(z_fit), 10)
     time_inverse(m)
-    return k1_fit, k2_fit, per_eval
+    return k1_fit, k2_fit, per_eval, rmse
 
 
 def rep_problem(seed, n_unique, d, p, n0, max_reps):
@@ -1511,6 +1541,394 @@ def phase_rep_train(dev, n=4096, p=1000):
     return (k1_fit, k2_fit), k1_serve, per_call
 
 
+def f32_counts():
+    """(K1, K2) launches of their f32 instantiations so far."""
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+    return matern32_gram.launches_f32, matern32_gram_vjp.launches_f32
+
+
+def reset_counts():
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+    for fn in (matern32_gram, matern32_gram_vjp):
+        fn.launches = fn.launches_f32 = 0
+
+
+def phase_f32_kernels(dev, x, y, xte):
+    """Phase 9, part 1: K1 and K2 f32 at full width against their plain f32
+    versions on the config-4 problem at its data-driven init: K1's square
+    with the 'fast' loss's epilogue and its 64-point request shape; K2 at
+    the 'fast' operating point (M = B^-1 of the f32 factor) and the 'mixed'
+    one (M = the f32 potri seed of the refined factor, w refined in f64).
+    Returns the two kernel records."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.ops import linalg, mixed
+    from lcgp_tpu_torch.ops._build import build
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    from lcgp_tpu_torch.ops.matern import (fused_cotangent, launch_matern32,
+                                           launch_matern32_vjp,
+                                           matern32_gram_plain,
+                                           matern32_gram_vjp_fused_plain,
+                                           matern32_gram_vjp_scale)
+    lib = build().lib
+    f32, f64 = torch.float32, torch.float64
+    m = LCGP(y, x, q=20, precision="fast", device=dev)
+    q, n, d = int(m.q), m.n, m.d
+    x0s = m._standardize_x0(xte)
+    ls, amp, nug, D, a = loss_operands(m, m.free)
+    xs32, ls32, amp32, nug32, D32 = (t.to(f32).contiguous()
+                                     for t in (m.x, ls, amp, nug, D))
+    dv = torch.full((q, n), 1.0 + m._jitter, dtype=f32, device=dev)
+    k1_errs, k2_errs = [], []
+
+    def p_sq():
+        C = matern32_gram_plain(xs32, xs32, ls32, amp32, nug32, same=True)
+        return linalg.add_diag(D32[:, None, None] * C, dv)
+    B_k = launch_matern32(xs32, xs32, ls32, amp32, nug32, same=True,
+                          row_scale=D32, diag_vec=dv)[0]
+    B_p = p_sq()
+    torch.cuda.synchronize()
+    k1_errs.append(compare(f"K1 f32 square+epilogue B ('fast' loss: row "
+                           f"scale D, diagonal 1 + 1e-6; q={q}, n={n}, "
+                           f"d={d}) vs plain f32", B_k, B_p, F32_RTOL,
+                           F32_ATOL))
+    check(torch.equal(B_k, B_k.mT), "K1 f32 B is not exactly symmetric")
+    del B_k, B_p
+    torch.cuda.empty_cache()
+    stack = q * n * n * 4
+    k_ms, p_ms = time_pair(f"K1 f32 square+epilogue (q={q} n={n})",
+                           raw_gram(lib, xs32, xs32, ls32, amp32, nug32, True,
+                                    D32, dv), p_sq, stack)
+    b_ms, b_by = say_bound(
+        "K1 f32 square+epilogue", k_ms,
+        stack + (xs32.numel() + ls32.numel() + 3 * q + dv.numel()) * 4,
+        q * entries(n, n, True) * k1_ops_per_entry(d, True), F32_INSTR_PER_S)
+    x64 = x0s[:64].to(f32).contiguous()
+
+    def p_req():
+        return matern32_gram_plain(x64, xs32, ls32, amp32, nug32, same=False)
+    k1_errs.append(compare(f"K1 f32 rectangular, one request (q={q}, n1=64, "
+                           f"n2={n}) vs plain f32",
+                           launch_matern32(x64, xs32, ls32, amp32, nug32,
+                                           same=False)[0], p_req(),
+                           F32_RTOL, F32_ATOL))
+    req_ms, req_plain_ms = time_pair(
+        "K1 f32 rectangular n1=64 (one 'fast' request)",
+        raw_gram(lib, x64, xs32, ls32, amp32, nug32, False), p_req,
+        q * 64 * n * 4)
+    req_bound, req_by = say_bound(
+        "K1 f32 request", req_ms,
+        q * 64 * n * 4 + ((64 + n) * d + ls.numel() + 2 * q) * 4,
+        q * entries(64, n, False) * k1_ops_per_entry(d, False),
+        F32_INSTR_PER_S)
+
+    # the 'fast' operating point: B^-1 of the f32 factor, w = B^-1 a in f32
+    B = gram_factor_target(m.x, ls, amp, nug, row_scale=D, diag_vec=dv,
+                           compute_dtype=f32)
+    L = linalg.cholesky(B)
+    del B
+    w_fast = linalg.cho_solve_vec(L, a.to(f32)).contiguous()
+    M_fast = linalg.chol_inverse(L)
+    del L
+    # the 'mixed' one: the f32 potri seed of the refined factor of the f64
+    # target, and w refined in f64, cast to f32
+    B = gram_factor_target(m.x, ls, amp, nug, row_scale=D,
+                           diag_vec=torch.ones((q, n), dtype=f64, device=dev))
+    L = mixed.cholesky_mixed(B, refine_steps=2, seed_jitter=1e-6)
+    w_mixed = mixed.cho_solve_vec_refined(L, B, a).to(f32).contiguous()
+    del B
+    M_mixed = mixed.chol_inverse_from_factor_mixed(L.to(f32), newton_steps=0)
+    del L
+    torch.cuda.empty_cache()
+    alpha32 = (0.5 * D).to(f32)
+    times = bounds = None
+    for label, M, w in (("'fast'", M_fast, w_fast),
+                        ("'mixed'", M_mixed, w_mixed)):
+        def p_vjp(M=M, w=w):
+            return matern32_gram_vjp_fused_plain(xs32, ls32, amp32, nug32,
+                                                 M=M, alpha=alpha32,
+                                                 beta=-0.5, w=w)
+        got = launch_matern32_vjp(xs32, xs32, ls32, amp32, nug32, same=True,
+                                  M=M, alpha=alpha32, beta=-0.5, w=w)
+        ref = p_vjp()
+        scale = matern32_gram_vjp_scale(
+            m.x, m.x, ls, amp, nug, same=True,
+            cbar=fused_cotangent(M.double(), alpha32.double(), -0.5,
+                                 w.double()))
+        torch.cuda.synchronize()
+        k2_errs.append(compare_vjp(
+            f"K2 f32 fused at the {label} operating point (q={q}, n={n}, "
+            f"d={d}) vs plain f32", got, ref, scale,
+            vjp_bound=VJP_BOUND_F32))
+        del got, ref, scale
+        torch.cuda.empty_cache()
+        if times is None:
+            times = time_pair(f"K2 f32 fused ('fast' loss gradient, q={q} "
+                              f"n={n})",
+                              raw_vjp(lib, xs32, ls32, amp32, nug32, M,
+                                      alpha32, -0.5, w), p_vjp,
+                              M.numel() * 4, "read")
+            bounds = say_bound(
+                "K2 f32 fused", times[0],
+                (M.numel() + w.numel() + xs32.numel() + 5 * q + ls.numel()
+                 + q * (d + 2)) * 4,
+                q * entries(n, n, True) * k2_ops_per_entry(d),
+                F32_INSTR_PER_S)
+    del m, M_fast, M_mixed
+    torch.cuda.empty_cache()
+    rec_k1 = dict(name="matern32_gram_f32", route="cuda", source=K1_SOURCE,
+                  replaces=K1_REPLACES, max_abs_err=max(k1_errs), ms=k_ms,
+                  plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None,
+                  shape=f"square+epilogue f32 q={q} n={n} d={d}",
+                  request_ms=req_ms, request_plain_ms=req_plain_ms,
+                  request_bound_ms=req_bound, request_bound_by=req_by)
+    rec_k2 = dict(name="matern32_gram_vjp_f32", route="cuda",
+                  source=K2_SOURCE, replaces=K2_REPLACES,
+                  max_abs_err=max(k2_errs), ms=times[0], plain_ms=times[1],
+                  bound_ms=bounds[0], bound_by=bounds[1], library_ms=None,
+                  shape=f"fused loss cotangent f32 q={q} n={n} d={d}")
+    return rec_k1, rec_k2
+
+
+def timed_s(fn):
+    """Host-clock seconds of fn(), ending in a synchronize."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mode_timings(m, xte, reps=5, requests=20):
+    """Warm medians of loss(), one loss+grad evaluation (host value and
+    gradient, as the fits see it), the aux and a 64-point request."""
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    m.loss()                                     # warm, and the ratchet
+    flat = Flattener(m.free)
+    vg = value_and_grad(m._loss_fn(), flat)
+    z = flat.ravel(m.free).cpu().numpy()
+    vg(z)
+    m.compute_aux_predictive_quantities()
+    m.predict(xte[:64], batch_size=64)
+    out = {"loss": statistics.median(timed_s(m.loss) for _ in range(reps)),
+           "loss_grad": statistics.median(timed_s(lambda: vg(z))
+                                          for _ in range(reps)),
+           "aux": statistics.median(
+               timed_s(m.compute_aux_predictive_quantities)
+               for _ in range(reps))}
+    req = sorted(timed_s(lambda s=s: m.predict(xte[s:s + 64], batch_size=64))
+                 for s in [64 * (r % 4) for r in range(requests)])
+    out["request_ms"] = statistics.median(req) * 1e3
+    out["request_p90_ms"] = req[int(0.9 * (requests - 1))] * 1e3
+    return out, (lambda: vg(z))
+
+
+def phase_precision(dev, x, y, xte, ytrue, free_np, rmse_f64):
+    """Phase 9, parts 2-6: the precision modes at config 4.  'mixed' at the
+    committed f64 fit (the ratchet, the loss rtol 1e-9 of 'high', refined
+    predictions within 1e-7 of each output's largest entry, one K2 f32
+    launch per loss+grad evaluation); 'mixed' at the init (the gradient
+    within 5e-4 of each leaf's max |g| of 'high's, f32-grade by design);
+    'fast' from the init (one loss+grad evaluation timed,
+    fit(method='auto', maxiter=FAST_MAXITER) resolving to 'lbfgs-jax' with
+    K1 and K2 f32 launches equal to nfev, the aux and 20 requests, peak
+    memory and the held-out RMSE); precision='auto' at n=4096; and the
+    three modes timed side by side with a profile of a 'mixed' and a
+    'fast' loss+grad evaluation.  Returns the f32 (K1, K2) launches of the
+    main path (parts 2-4) and the f32 launches per call."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.fit import DeviceFitResult
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
+    from lcgp_tpu_torch.ops.mixed import parse_refine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    say("  -- 'mixed' at the committed f64 fit (amplitudes at 1e4)")
+    hi = LCGP(y, x, q=20, device=dev)
+    mx = LCGP(y, x, q=20, precision="mixed", device=dev)
+    hi.free = free_params_from_numpy(*free_np, dev)
+    mx.free = free_params_from_numpy(*free_np, dev)
+    rec = mx.recommended_refine_steps()
+    loss_hi = float(hi.loss())
+    t_mx = timed_s(mx.loss)
+    loss_mx = float(mx.loss())
+    steps = parse_refine(mx._compute_dtype)
+    rel = abs(loss_mx - loss_hi) / abs(loss_hi)
+    say(f"  recommended_refine_steps() = {rec}; loss() ratcheted to {steps} "
+        f"steps ({mx._compute_dtype!r}; first call {t_mx:.3f} s)")
+    say(f"  loss: 'mixed' {loss_mx!r} vs 'high' {loss_hi!r}: rel {rel:.3e} "
+        "(bound 1e-9)")
+    check(steps == max(rec, 2), "the loss() ratchet did not reach the "
+          "recommended refinement")
+    check(rel <= 1e-9, "the 'mixed' loss differs from 'high' beyond 1e-9")
+    for name, a, b in zip(("ypred", "ypredvar", "yconfvar"),
+                          mx.predict(xte, batch_size=64),
+                          hi.predict(xte, batch_size=64)):
+        compare_normwise(f"'mixed' {name} (refined aux) vs 'high'", a, b,
+                         1e-7)
+    flat = Flattener(mx.free)
+    vg_mx = value_and_grad(mx._loss_fn(), flat)
+    z_fit = flat.ravel(mx.free).cpu().numpy()
+    k_all = launches_of(lambda: vg_mx(z_fit))
+    k_f32 = f32_counts()
+    vg_mx(z_fit)
+    k_f32 = tuple(b - a for a, b in zip(k_f32, f32_counts()))
+    say(f"  one 'mixed' loss+grad evaluation at the fit: (K1, K2) launches "
+        f"{k_all}, of them f32 {k_f32}")
+    check(k_all == (1, 1) and k_f32 == (0, 1), "a 'mixed' loss+grad "
+          "evaluation should launch K1 f64 once and K2 f32 once")
+    del hi, mx, vg_mx
+    torch.cuda.empty_cache()
+
+    say("  -- 'mixed' at the data-driven init: its gradient against 'high's")
+    hi0 = LCGP(y, x, q=20, device=dev)
+    mi0 = LCGP(y, x, q=20, precision="mixed", device=dev)
+    mi0.loss()
+    flat = Flattener(hi0.free)
+    z0 = flat.ravel(hi0.free).cpu().numpy()
+    v_h, g_h = value_and_grad(hi0._loss_fn(), flat)(z0)
+    v_m, g_m = value_and_grad(mi0._loss_fn(), flat)(z0)
+    say(f"  loss 'mixed' {v_m!r} vs 'high' {v_h!r}: rel "
+        f"{abs(v_m - v_h) / abs(v_h):.3e} ({mi0._compute_dtype!r})")
+    check(abs(v_m - v_h) <= 1e-9 * abs(v_h), "'mixed' loss at the init "
+          "differs from 'high' beyond 1e-9")
+    start = 0
+    for name, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
+                          flat.sizes):
+        ga, gb = g_m[start:start + size], g_h[start:start + size]
+        start += size
+        err, top = float(np.max(np.abs(ga - gb))), float(np.max(np.abs(gb)))
+        say(f"  'mixed' gradient {name}: max_abs_err={err:.3e} vs 'high' "
+            f"(max |g| {top:.3e}, rel {err / top:.3e}; bound 5e-4)")
+        check(err <= 5e-4 * top, f"'mixed' gradient {name} differs from "
+              "'high' beyond 5e-4 of its max |g|")
+    del g_h, g_m
+    torch.cuda.empty_cache()
+
+    say(f"  -- 'fast' from the init: fit(method='auto', "
+        f"maxiter={FAST_MAXITER}), aux and requests")
+    fm = LCGP(y, x, q=20, precision="fast", device=dev)
+    say(f"  LCGP(precision='fast'): q_chunk={fm.q_chunk}, jitter "
+        f"{fm._jitter:g}")
+    flat = Flattener(fm.free)
+    vg_f = value_and_grad(fm._loss_fn(), flat)
+    zf = flat.ravel(fm.free).cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = timed_s(lambda: vg_f(zf))
+    warm = [timed_s(lambda: vg_f(zf)) for _ in range(5)]
+    before = f32_counts()
+    per_eval = launches_of(lambda: vg_f(zf))
+    per_eval_f32 = tuple(b - a for a, b in zip(before, f32_counts()))
+    say(f"  'fast' loss+grad evaluation: first {first:.4f} s, warm median "
+        f"{statistics.median(warm):.4f} s of 5; (K1, K2) launches "
+        f"{per_eval}, f32 {per_eval_f32}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(per_eval == per_eval_f32 == (1, 1), "a 'fast' loss+grad "
+          "evaluation should launch K1 f32 and K2 f32 once each")
+    l_init = float(fm.loss())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1_0, k2_0 = f32_counts()
+    a1, a2 = matern32_gram.launches, matern32_gram_vjp.launches
+    t0 = time.perf_counter()
+    fm.fit(method="auto", maxiter=FAST_MAXITER)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    res = fm._fit_result
+    k1_fit = matern32_gram.launches - a1
+    k2_fit = matern32_gram_vjp.launches - a2
+    k1_fit32, k2_fit32 = (f - b for f, b in zip(f32_counts(), (k1_0, k2_0)))
+    say(f"  fit(method='auto', maxiter={FAST_MAXITER}) ran "
+        f"{type(res).__name__} (lbfgs-jax): stop_reason={res.stop_reason!r} "
+        f"nit={res.nit} nfev={res.nfev} in {fit_s:.3f} s "
+        f"({fit_s / max(res.nfev, 1):.4f} s per evaluation, "
+        f"{fit_s / max(res.nit, 1):.4f} s per iteration); loss "
+        f"{l_init:.10g} -> {res.fun:.10g}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    say(f"  K1 launches in the fit: {k1_fit} (f32 {k1_fit32}); K2: {k2_fit} "
+        f"(f32 {k2_fit32}); nfev {res.nfev}")
+    check(isinstance(res, DeviceFitResult) and res.nfev > 0,
+          "fit(method='auto') under 'fast' at n=4096 did not run lbfgs-jax")
+    check((k1_fit, k2_fit, k1_fit32, k2_fit32) == (res.nfev,) * 4,
+          "the 'fast' fit should launch K1 f32 and K2 f32 once per "
+          "evaluation")
+    check(np.isfinite(res.fun) and res.fun < l_init,
+          "the 'fast' fit did not lower the loss")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aux_s = timed_s(fm.compute_aux_predictive_quantities)
+    outs, req_s = [], []
+    for r in range(20):
+        s0 = 64 * (r % 4)
+        req_s.append(timed_s(lambda: outs.append(
+            fm.predict(xte[s0:s0 + 64], batch_size=64))))
+    say(f"  'fast' aux {aux_s:.4f} s; 20 predict(batch_size=64) requests: "
+        f"median {statistics.median(req_s) * 1e3:.2f} ms; serving peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    ypred, ypredvar, yconfvar = (torch.cat([o[i] for o in outs[:4]], dim=1)
+                                 for i in range(3))
+    for name, t in (("ypred", ypred), ("ypredvar", ypredvar),
+                    ("yconfvar", yconfvar)):
+        check(bool(torch.isfinite(t).all()), f"'fast' {name} not finite")
+    check(tuple(ypred.shape) == ytrue.shape, f"ypred {tuple(ypred.shape)}")
+    check(bool((ypredvar > 0).all()), "'fast' predvar not positive")
+    rmse = float(np.sqrt(np.mean((ypred.cpu().numpy() - ytrue) ** 2)))
+    say(f"  held-out RMSE after the {FAST_MAXITER}-iteration 'fast' fit: "
+        f"{rmse:.6f} (phase 6's 20-iteration f64 scipy fit: "
+        f"{rmse_f64:.6f})")
+    f32_main = f32_counts()
+    say(f"  f32 launches on phase 9's main path ('mixed' at the fit and the "
+        f"init, the 'fast' evaluations, fit and serving): K1 {f32_main[0]}, "
+        f"K2 {f32_main[1]}")
+    per_call = {"fast_loss_grad": per_eval_f32, "mixed_loss_grad": k_f32,
+                "fast_request": launches_of(
+                    lambda: fm.predict(xte[:64], batch_size=64))}
+    del fm, vg_f, outs
+    torch.cuda.empty_cache()
+
+    say("  -- precision='auto' at n=4096")
+    am = LCGP(y, x, q=20, precision="auto", device=dev)
+    say(f"  precision='auto' -> {am.precision!r} (n={am.n}, "
+        f"_AUTO_MIXED_N={LCGP._AUTO_MIXED_N})")
+    check(am.precision == "mixed", "precision='auto' did not resolve to "
+          "'mixed' at n=4096")
+    del am
+
+    say("  -- the three modes side by side at the data-driven init "
+        "(warm medians)")
+    table, evals = {}, {}
+    for mode, m in (("high", hi0), ("mixed", mi0),
+                    ("fast", LCGP(y, x, q=20, precision="fast",
+                                  device=dev))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        table[mode], evals[mode] = mode_timings(m, xte)
+        table[mode]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        m._aux = None
+    say("  mode   loss s   loss+grad s   aux s   request ms (p90)   peak GB")
+    for mode, t in table.items():
+        say(f"  {mode:6s} {t['loss']:.4f}   {t['loss_grad']:.4f}        "
+            f"{t['aux']:.4f}  {t['request_ms']:.2f} "
+            f"({t['request_p90_ms']:.2f})      {t['peak_gb']:.3f}")
+    for mode in ("mixed", "fast"):
+        say(f"  {mode} / high: loss "
+            f"{table[mode]['loss'] / table['high']['loss']:.3f}x, loss+grad "
+            f"{table[mode]['loss_grad'] / table['high']['loss_grad']:.3f}x, "
+            f"aux {table[mode]['aux'] / table['high']['aux']:.3f}x")
+    say(f"  timings JSON: {json.dumps(table)}")
+    profile_device("one 'mixed' loss+grad evaluation", evals["mixed"], 10)
+    profile_device("one 'fast' loss+grad evaluation", evals["fast"], 10)
+    return f32_main, per_call
+
+
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
@@ -1625,8 +2043,8 @@ def main() -> int:
     k1_serve, per_call = phase_main(dev, x, y, xte, ytrue, free_np)
 
     say("[6] training at config 4 (n=4096, p=1000, q=20, d=8, f64)")
-    k1_fit, k2_fit, per_call["loss_grad"] = phase_train(dev, x, y, xte,
-                                                         ytrue)
+    k1_fit, k2_fit, per_call["loss_grad"], rmse_f64 = phase_train(
+        dev, x, y, xte, ytrue)
 
     say("[7] rep serving at config 5 (n_unique=1000 x 10 replicates, p=3, "
         "q=3, d=4, f64)")
@@ -1637,6 +2055,23 @@ def main() -> int:
         "p=1000, q=20, d=8, f64)")
     (k1_rep_fit, k2_rep_fit), k1_rep_serve, rep_calls = phase_rep_train(dev)
     per_call.update(rep_calls)
+    say("[9] precision modes at config 4 (n=4096, p=1000, q=20, d=8): K1 "
+        "and K2 f32 against their plain versions, then 'mixed', 'fast' and "
+        "'auto'")
+    rec_k1_f32, rec_k2_f32 = phase_f32_kernels(dev, x, y, xte)
+    f32_main, calls_f32 = phase_precision(dev, x, y, xte, ytrue, free_np,
+                                          rmse_f64)
+    check(min(f32_main) > 0, f"an f32 kernel did not launch on phase 9's "
+          f"main path: (K1, K2) f32 launches {f32_main}")
+    for rec, i in ((rec_k1_f32, 0), (rec_k2_f32, 1)):
+        rec["launches"] = f32_main[i]
+        rec["launches_per_eval"] = calls_f32["fast_loss_grad"][i]
+        rec["launches_per_call"] = {k: v[i] for k, v in calls_f32.items()}
+        rec["registers"] = {
+            k: v for k, v in registers.items()
+            if k.startswith(("matern32_gram_kernel", "matern32_vjp_")[i])
+            and "<float" in k}
+
     say("  launches per call (K1, K2): " + ", ".join(
         f"{k} {v}" for k, v in per_call.items()))
     for key in ("loss_grad", "rep_loss_grad"):
@@ -1654,7 +2089,8 @@ def main() -> int:
         rec["registers"] = {k: v for k, v in registers.items()
                             if k.startswith(prefix)}
 
-    say(json.dumps({"kernels": [record, record_vjp]}))
+    say(json.dumps({"kernels": [record, record_vjp, rec_k1_f32,
+                                rec_k2_f32]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,11 +2,14 @@
 
 Precision modes
 ---------------
-``'high'``  : float64 end to end (parity with the reference).  The only mode
-              the port implements so far.
-``'mixed'`` : f64 data/Gram/reductions with mixed-precision factorizations.
+``'high'``  : float64 end to end (parity with the reference).
+``'mixed'`` : f64 data/Gram/reductions with mixed-precision factorizations
+              (an f32 Cholesky refined to f64 grade, ``ops/mixed.py``):
+              an f64-grade loss with f32-grade gradients.
 ``'fast'``  : float32 Gram construction and factorizations with a jitter
               floor.
+``'auto'`` (resolved by the model once n is known): 'mixed' at n >= 2048,
+'high' below.
 
 Every f32 matmul must run in true f32.  TF32 keeps about three decimal
 digits, and reduced-precision f32 GEMMs break the PSD margin of the

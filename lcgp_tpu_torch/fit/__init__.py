@@ -1,12 +1,11 @@
-"""Optimizers over the free parameters (counterpart of ``lcgp_tpu/fit``).
-
-Ported: scipy L-BFGS-B (:func:`minimize_lbfgs`) and Adam
-(:func:`minimize_adam`).  The on-device optax L-BFGS of the JAX package
-(``minimize_lbfgs_jax``) and the ``hybrid`` fit wait for ROADMAP.md Queue 1
-item 12.
+"""Optimizers over the free parameters (counterpart of ``lcgp_tpu/fit``):
+scipy L-BFGS-B (:func:`minimize_lbfgs`), Adam (:func:`minimize_adam`) and
+the port of the JAX package's on-device optax L-BFGS
+(:func:`minimize_lbfgs_jax`, ``fit(method='lbfgs-jax')``).
 """
 from .adam import DeviceFitResult, PlateauTracker, minimize_adam
+from .lbfgs import minimize_lbfgs_jax
 from .scipy_lbfgs import FitResult, minimize_lbfgs
 
 __all__ = ["minimize_lbfgs", "FitResult", "minimize_adam",
-           "DeviceFitResult", "PlateauTracker"]
+           "minimize_lbfgs_jax", "DeviceFitResult", "PlateauTracker"]

@@ -26,6 +26,7 @@ class DeviceFitResult(NamedTuple):
     fun: float
     nit: int
     stop_reason: str = 'cap'   # 'gtol' | 'plateau' | 'cap' | 'steps'
+    nfev: int = 0              # loss and gradient evaluations
 
 
 class PlateauTracker:
@@ -92,4 +93,4 @@ def minimize_adam(loss_fn: Callable, params0, *, steps: int = 500,
     # Adam's step count is a budget, not a convergence criterion: 'steps'
     # (not 'cap') keeps fit() from announcing a premature stop
     return DeviceFitResult(params=flattener.unravel(x.clone()), fun=last,
-                           nit=steps, stop_reason='steps')
+                           nit=steps, stop_reason='steps', nfev=steps)

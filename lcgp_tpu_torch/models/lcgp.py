@@ -2,22 +2,26 @@
 
 Same constructor surface, parameter accessors, ``loss``/``fit``/``predict``,
 aux accessors, npz ``save``/``load`` format and fit checkpoints as
-``lcgp_tpu.LCGP``, for ``submethod='full'`` and ``'rep'``,
-``precision='high'`` (float64) and ``kernel='matern32'``.  NumPy or tensors
-in, float64 tensors on ``device`` out.  What is not ported yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``lcgp_tpu.LCGP``, for ``submethod='full'`` and ``'rep'``, every
+``precision`` (``'high'`` float64, ``'mixed'`` refined f32 factors,
+``'fast'`` float32, ``'auto'``) and ``kernel='matern32'``.  NumPy or
+tensors in, tensors on ``device`` out (float64, or float32 latents under
+``'fast'``).  What is not ported yet raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
 import json
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import dtype_for, jitter_for
-from ..fit import minimize_adam, minimize_lbfgs
+from ..fit import minimize_adam, minimize_lbfgs, minimize_lbfgs_jax
 from ..ops import linalg
+from ..ops import mixed as mixed_ops
 from . import basis as basis_mod
 from . import likelihood as lik
 from . import params as P
@@ -61,12 +65,6 @@ class LCGP:
             raise ValueError('LCGP requires both y (p, n) and x (n, d).')
         if submethod not in ('full', 'rep'):
             raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
-        if precision != 'auto':
-            dtype_for(precision)      # ValueError for an unknown mode
-        if precision != 'high':
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported yet; only 'high' "
-                "(ROADMAP.md Queue 1 item 11)")
         if kernel not in ('matern32', 'matern52', 'rbf'):
             raise ValueError("kernel must be 'matern32', 'matern52', or 'rbf'")
         if kernel != 'matern32':
@@ -83,8 +81,16 @@ class LCGP:
         self.robust_mean = robust_mean
         self.rep_standardize_ybar = rep_standardize_ybar
         self.parameter_clamp_flag = parameter_clamp_flag
+        # precision='auto' resolves to 'mixed' at n >= _AUTO_MIXED_N and
+        # 'high' below, once n is known (the rep grouping can shrink it)
         self.precision = precision
-        self._jitter = jitter_for(precision)
+        if precision == 'auto':
+            self._compute_dtype = None
+            self._jitter = jitter_for('high')
+        else:
+            self._compute_dtype = (None if precision == 'high'
+                                   else dtype_for(precision))
+            self._jitter = jitter_for(precision)
         self._q_chunk_arg = q_chunk
         self.q_chunk = q_chunk
         self._n_chunk_arg = n_chunk
@@ -117,6 +123,16 @@ class LCGP:
             self.y, self.ymean, self.ystd = tx.standardize_y(self.y,
                                                              self.robust_mean)
 
+        if self.precision == 'auto':
+            self.precision = ('mixed' if self.n >= self._AUTO_MIXED_N
+                              else 'high')
+            self._compute_dtype = (None if self.precision == 'high'
+                                   else dtype_for(self.precision))
+            self._jitter = jitter_for(self.precision)
+            if self.verbose:
+                print(f"[lcgp_tpu_torch] precision='auto' -> "
+                      f"{self.precision!r} (n={self.n})")
+
         # SVD basis on the host; q is resolved there, shapes fixed after
         b = basis_mod.init_phi(self._get_phi_input().cpu().numpy(), q=self.q,
                                var_threshold=var_threshold)
@@ -130,7 +146,7 @@ class LCGP:
 
         if self._q_chunk_arg is None:
             self.q_chunk = self._auto_q_chunk(int(self.q), int(self.n),
-                                              self.device)
+                                              self.device, self.precision)
         elif self._q_chunk_arg <= 0:
             self.q_chunk = None
 
@@ -330,40 +346,104 @@ class LCGP:
     # ------------------------------------------------------------------
     def loss(self) -> torch.Tensor:
         """Negative log marginal posterior at the current parameters (the
-        rep loss is divided by the number of unique sites)."""
+        rep loss is divided by the number of unique sites).  Under 'mixed'
+        the refinement first ratchets up to the step count the current
+        parameters' conditioning calls for (never down)."""
+        if self.precision == 'mixed':
+            self._sync_refine_steps()
         neglpost = (lik.neglpost_rep if self.submethod == 'rep'
                     else lik.neglpost_full)
-        return neglpost(self._free, self._data, jitter=self._jitter,
-                        q_chunk=self.q_chunk, kernel=self.kernel)
+        return neglpost(self._free, self._data,
+                        compute_dtype=self._compute_dtype,
+                        jitter=self._jitter, q_chunk=self.q_chunk,
+                        kernel=self.kernel)
 
-    def _loss_fn(self):
-        return lik.make_loss(self.submethod, self._data, jitter=self._jitter,
+    def _sync_refine_steps(self):
+        cur = mixed_ops.parse_refine(self._compute_dtype)
+        rec = self.recommended_refine_steps()
+        if cur is not None and rec > cur:
+            self._set_refine_steps(rec)
+
+    def recommended_refine_steps(self) -> int:
+        """Refinement steps the conditioning of the current parameters
+        calls for on the 'mixed' path (``lcgp_tpu/models/lcgp.py:518-546``).
+
+        Proxy: a per-component bound on the factorization target's
+        condition number, full: 1 + D_k amp_k n; rep: (amp_k n + max
+        lam_k) / min lam_k.  One step contracts the factor error by
+        ~eps32 cond, so one more step is needed per ~1/eps32 factor."""
+        _, lLmb0, _, _ = P.constrain(self._free)
+        amp = lLmb0.detach().cpu().numpy().astype(float)
+        D = self.diag_D.cpu().numpy().astype(float)
+        n = float(self.n)
+        if self.submethod == 'rep':
+            r = self.r.cpu().numpy().astype(float)
+            lam = 1.0 / (D[:, None] * r[None, :])          # (q, n)
+            cond = np.max((amp * n + lam.max(axis=1)) / lam.min(axis=1))
+        else:
+            cond = float(np.max(1.0 + D * amp * n))
+        if not math.isfinite(cond) or cond <= 3e5:
+            return 2
+        if cond <= 3e7:
+            return 3
+        if cond <= 3e9:
+            return 4
+        return 5
+
+    def _set_refine_steps(self, k: int):
+        self._compute_dtype = ('mixed' if k == mixed_ops.DEFAULT_REFINE_STEPS
+                               else f'mixed:{int(k)}')
+
+    def _loss_fn(self, compute_dtype='model', jitter=None):
+        """Loss closure; compute_dtype and jitter default to the model's
+        precision, and the hybrid fit's f32 stage overrides them."""
+        if compute_dtype == 'model':
+            compute_dtype = self._compute_dtype
+        if jitter is None:
+            jitter = self._jitter
+        return lik.make_loss(self.submethod, self._data,
+                             compute_dtype=compute_dtype, jitter=jitter,
                              q_chunk=self.q_chunk, kernel=self.kernel)
 
-    # method='auto' switches scipy to a plateau stop at this n
+    # at this n, method='auto' stops letting the optimizer run unbounded
     _AUTO_ONDEVICE_N = 512
+    # precision='auto' resolves to 'mixed' at this n (lcgp_tpu's threshold)
+    _AUTO_MIXED_N = 2048
 
     def fit(self, verbose: bool = False, method: str = 'auto', **kwargs):
         """Optimize hyperparameters.
 
-        method='auto'  : 'scipy' uncapped (parity semantics) for n < 512
-                         (n counts unique sites on the rep path);
-                         at n >= 512 'scipy' with a plateau stop (halt when
-                         the relative loss decrease over the last
-                         plateau_patience=20 iterations is below
-                         plateau_rtol=1e-8) and maxiter=2000 as a safety
-                         cap, whose stop is announced and recorded in
-                         ``_fit_result.stop_reason``.
-        method='scipy' : scipy L-BFGS-B over the loss and its gradient (the
-                         reference's semantics; kwargs: scipy options,
-                         plateau_patience, plateau_rtol, callback).
-        method='adam'  : Adam on the device (kwargs: steps, learning_rate,
-                         block_steps, callback).
+        method='auto'     : 'scipy' uncapped (parity semantics) for n < 512
+                            (n counts unique sites on the rep path).  At
+                            n >= 512, precision='fast' runs 'lbfgs-jax'
+                            with plateau_rtol=1e-8; 'high' and 'mixed' run
+                            'scipy' with a plateau stop (halt when the
+                            relative loss decrease over the last
+                            plateau_patience=20 iterations is below
+                            plateau_rtol=1e-8) and maxiter=2000 as a
+                            safety cap, whose stop is announced and
+                            recorded in ``_fit_result.stop_reason``.
+        method='scipy'    : scipy L-BFGS-B over the loss and its gradient
+                            (the reference's semantics; kwargs: scipy
+                            options, plateau_patience, plateau_rtol,
+                            callback).
+        method='adam'     : Adam on the device (kwargs: steps,
+                            learning_rate, block_steps, callback).
+        method='lbfgs-jax': the port of lcgp_tpu's on-device optax L-BFGS
+                            (``fit/lbfgs.py``; kwargs: maxiter, tol,
+                            block_iters, linesearch, plateau_rtol,
+                            callback).
+        method='hybrid'   : an f32 'lbfgs-jax' stage (jitter 1e-6, maxiter
+                            200 unless given), then a 'lbfgs-jax' polish in
+                            the model's precision (polish_maxiter=60).
+
+        Under precision='mixed' the fit starts at the refinement steps the
+        current conditioning calls for, and re-runs (up to 3 times) with
+        more steps when the fitted conditioning calls for them.
 
         checkpoint_path=... saves the free parameters, step and loss at
-        every callback (each L-BFGS iteration, each Adam block); restore
-        with :meth:`restore_checkpoint`.  'lbfgs-jax', 'hybrid' and mesh=
-        are not ported yet.
+        every callback (each L-BFGS iteration or block, each Adam block);
+        restore with :meth:`restore_checkpoint`.  mesh= is not ported yet.
         """
         checkpoint_path = kwargs.pop('checkpoint_path', None)
         if checkpoint_path is not None:
@@ -390,21 +470,69 @@ class LCGP:
                 "fit(mesh=...) is not ported yet (ROADMAP.md Queue 1 "
                 "item 17)")
         if method == 'auto':
-            method = 'scipy'
             if self.n >= self._AUTO_ONDEVICE_N:
-                # convergence-based stop instead of a hand-tuned maxiter;
-                # maxiter stays only as a safety cap
-                kwargs.setdefault('plateau_patience', 20)
-                kwargs.setdefault('plateau_rtol', 1e-8)
-                kwargs.setdefault('maxiter', 2000)
+                if self.precision == 'fast':
+                    method = 'lbfgs-jax'
+                    kwargs.setdefault('plateau_rtol', 1e-8)
+                else:
+                    # convergence-based stop instead of a hand-tuned
+                    # maxiter; maxiter stays only as a safety cap
+                    method = 'scipy'
+                    kwargs.setdefault('plateau_patience', 20)
+                    kwargs.setdefault('plateau_rtol', 1e-8)
+                    kwargs.setdefault('maxiter', 2000)
+                if self.precision == 'high' and \
+                        self.n >= self._AUTO_MIXED_N and \
+                        (verbose or self.verbose) and \
+                        not getattr(self, '_mixed_hint_shown', False):
+                    self._mixed_hint_shown = True
+                    print(f"[lcgp_tpu_torch.fit] hint: at n={self.n}, "
+                          "precision='mixed' (or 'auto') gives an f64-grade "
+                          "loss with f32-grade gradients; on an NVIDIA H100 "
+                          "80GB HBM3 (700 W) its loss+grad took 3.4x the "
+                          "f64 time at n=4096 (PERF.md)")
+            else:
+                method = 'scipy'
             if verbose or self.verbose:
                 print(f'[lcgp_tpu_torch.fit] auto-selected method={method!r} '
                       f'(n={self.n}, {kwargs})')
-        if method in ('lbfgs-jax', 'hybrid'):
-            raise NotImplementedError(
-                f"fit(method={method!r}) is not ported yet (ROADMAP.md "
-                "Queue 1 item 12)")
+        if method == 'hybrid':
+            fast_loss = self._loss_fn(compute_dtype=torch.float32,
+                                      jitter=1e-6)
+            polish_maxiter = kwargs.pop('polish_maxiter', 60)
+            # the f32 stage only needs to get close; the polish finishes the
+            # convergence in model precision, so the cheap stage is capped
+            kwargs.setdefault('maxiter', 200)
+            res1 = minimize_lbfgs_jax(fast_loss, self._free, **kwargs)
+            # the polish keeps the callback (checkpoints cover both stages)
+            res = minimize_lbfgs_jax(self._loss_fn(), res1.params,
+                                     maxiter=polish_maxiter,
+                                     callback=kwargs.get('callback'))
+            self._free = res.params
+            self._params_version += 1
+            self._fit_result = res
+            return
+        if self.precision == 'mixed':
+            # start at the step count the current conditioning calls for
+            self._set_refine_steps(max(
+                self.recommended_refine_steps(),
+                mixed_ops.parse_refine(self._compute_dtype)))
         self._run_optimizer(self._loss_fn(), method, verbose, **kwargs)
+        if self.precision == 'mixed':
+            # conditioning grows as amplitudes fit: escalate the refinement
+            # and re-converge until the fitted conditioning is within it
+            for _ in range(3):
+                cur = mixed_ops.parse_refine(self._compute_dtype)
+                rec = self.recommended_refine_steps()
+                if rec <= cur:
+                    break
+                self._set_refine_steps(rec)
+                if verbose or self.verbose:
+                    print(f'[lcgp_tpu_torch.fit] mixed refinement escalated '
+                          f'to {rec} steps (fitted conditioning); '
+                          're-converging')
+                self._run_optimizer(self._loss_fn(), method, verbose,
+                                    **kwargs)
 
     def _run_optimizer(self, loss_fn, method, verbose, **kwargs):
         if method == 'scipy':
@@ -412,6 +540,8 @@ class LCGP:
                                  verbose=verbose or self.verbose, **kwargs)
         elif method == 'adam':
             res = minimize_adam(loss_fn, self._free, **kwargs)
+        elif method == 'lbfgs-jax':
+            res = minimize_lbfgs_jax(loss_fn, self._free, **kwargs)
         else:
             raise ValueError(f'Unknown fit method {method!r}.')
         self._free = res.params
@@ -456,14 +586,17 @@ class LCGP:
         return cls._MEM_BUDGET_DEFAULT
 
     @classmethod
-    def _auto_q_chunk(cls, q: int, n: int, device: torch.device):
+    def _auto_q_chunk(cls, q: int, n: int, device: torch.device,
+                      precision: str = 'high'):
         """Component-chunk size so the working set fits device memory, with
         the JAX package's peak model of ~8 transient (qc, n, n) stacks plus
-        a (q, n, n) term: (8 qc + q) n^2 * 8 bytes.  None = unchunked."""
+        a (q, n, n) term: (8 qc + q) n^2 * itemsize, itemsize 4 under
+        'fast' and 8 otherwise.  None = unchunked."""
+        itemsize = 4 if precision == 'fast' else 8
         budget = cls._mem_budget_bytes(device)
 
         def peak(qc):
-            return (8 * qc + q) * n * n * 8
+            return (8 * qc + q) * n * n * itemsize
 
         if peak(q) <= budget:
             return None
@@ -482,8 +615,10 @@ class LCGP:
             self._aux = None   # free the old factor before building the new
             compute = (pred.compute_aux_rep if self.submethod == 'rep'
                        else pred.compute_aux_full)
-            self._aux = compute(self._free, self._data, jitter=self._jitter,
-                                kernel=self.kernel, q_chunk=self.q_chunk)
+            self._aux = compute(self._free, self._data,
+                                compute_dtype=self._compute_dtype,
+                                jitter=self._jitter, kernel=self.kernel,
+                                q_chunk=self.q_chunk)
             self._aux_version = self._params_version
         return self._aux
 
@@ -514,7 +649,7 @@ class LCGP:
             return None
         LB = self._ensure_aux().LB
         wB, U = torch.linalg.eigh(LB @ LB.mT)           # B = U diag(wB) U^T
-        scal = torch.sqrt(self.diag_D[:, None] / wB)
+        scal = torch.sqrt(self.diag_D[:, None].to(wB.dtype) / wB)
         return torch.einsum('qij,qj,qkj->qik', U, scal, U)
 
     @property
@@ -585,7 +720,8 @@ class LCGP:
         aux = self._ensure_aux()
         x0s = self._standardize_x0(x0)
         ghat, gvar = pred.predict_full_core(
-            self._free, self._data, aux, x0s, jitter=self._jitter,
+            self._free, self._data, aux, x0s,
+            compute_dtype=self._compute_dtype, jitter=self._jitter,
             kernel=self.kernel, q_chunk=self.q_chunk)
         self.ghat, self.gvar = ghat, gvar
         ypred, ypredvar, yconfvar = pred.recombine_full(
@@ -600,7 +736,8 @@ class LCGP:
         aux = self._ensure_aux()
         x0s = self._standardize_x0(x0)
         ghat, gvar = pred.predict_rep_core(
-            self._free, self._data, aux, x0s, jitter=self._jitter,
+            self._free, self._data, aux, x0s,
+            compute_dtype=self._compute_dtype, jitter=self._jitter,
             kernel=self.kernel, q_chunk=self.q_chunk)
         self.ghat, self.gvar = ghat, gvar
         if self.rep_standardize_ybar:

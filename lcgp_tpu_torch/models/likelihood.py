@@ -32,6 +32,14 @@ replicates) has, with Lam_k = diag(1/(D_k r)) and A_k = C_k + Lam_k,
 epilogue with row scale 1 and diagonal lam + jitter), ``C u`` recovers as
 ``Lam b - (lam + jitter) u``, and the gradient runs K2 at alpha = 1/2 and
 M = A^{-1}.
+
+``compute_dtype`` is the precision mode (``lcgp_tpu/models/likelihood.py
+:25-61``): None for 'high'; the 'mixed' sentinel ('mixed:N' for N
+refinement steps) builds the target in f64 (K1 f64), factors and solves it
+through ``ops/mixed.py`` and runs the gradient work in f32 (the f32 potri
+seed as B^{-1}, K2 f32); ``torch.float32`` ('fast') builds, factors and
+solves in f32 (K1 and K2 f32).  Both keep the substitution flow, and the
+n-length sums accumulate in f64.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import linalg
+from ..ops import mixed as mixed_ops
 from ..ops.gram import gram_factor_target, gram_vjp_fused
 from . import params as P
 
@@ -74,13 +83,41 @@ def _bmv(mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     return torch.matmul(mats, vecs[..., :, None])[..., :, 0]
 
 
-def _factor(B: torch.Tensor) -> torch.Tensor:
-    """Cholesky of the factorization target ('high' precision)."""
+def _factor(B: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Cholesky of the factorization target; under 'mixed' ('mixed:N' for
+    N refinement steps) an f32 factor refined to f64 grade."""
+    steps = mixed_ops.parse_refine(compute_dtype)
+    if steps is not None:
+        return mixed_ops.cholesky_mixed(B, refine_steps=steps,
+                                        seed_jitter=1e-6)
     return linalg.cholesky(B)
 
 
-def _factor_solve_vec(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _factor_solve_vec(L: torch.Tensor, B: torch.Tensor, v: torch.Tensor,
+                      compute_dtype) -> torch.Tensor:
+    steps = mixed_ops.parse_refine(compute_dtype)
+    if steps is not None:
+        return mixed_ops.cho_solve_vec_refined(L, B, v, refine_steps=steps)
     return linalg.cho_solve_vec(L, v)
+
+
+def _factor_inverse(L: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """(L L^T)^{-1} for the loss gradient.  'mixed' takes the f32 potri
+    seed alone (newton_steps=0): an f64-grade loss with f32-grade
+    gradients, as ``lcgp_tpu/models/likelihood.py:42-61`` designs it;
+    'mixed:N' tightens only the forward refinement."""
+    if mixed_ops.is_mixed(compute_dtype):
+        return mixed_ops.chol_inverse_from_factor_mixed(L, newton_steps=0)
+    return linalg.chol_inverse(L)
+
+
+def _dtypes(compute_dtype, xs):
+    """(dt, vdt): the dtype the Gram and factor are built in (f32 under
+    'fast', the data's under 'high' and 'mixed') and the one the gradient
+    work runs in (f32 under 'mixed' and 'fast')."""
+    mixed = mixed_ops.is_mixed(compute_dtype)
+    dt = xs.dtype if compute_dtype is None or mixed else compute_dtype
+    return dt, (torch.float32 if mixed else dt)
 
 
 def _map_components(body, stacks, q_chunk):
@@ -96,31 +133,46 @@ def _map_components(body, stacks, q_chunk):
                       for s in range(0, q, q_chunk)])
 
 
-def _full_terms_impl(jitter: float, kernel: str, xs, lLmb, lLmb0, lnug, D,
-                     a, want_kernel_grad: bool = False):
+def _full_terms_impl(compute_dtype, jitter: float, kernel: str, xs, lLmb,
+                     lLmb0, lnug, D, a, want_kernel_grad: bool = False):
     """The component terms (qc,), -C w (the gradient in a), and, when
     ``want_kernel_grad``, the gradients (glens, gamp, gnug) of the terms in
-    the kernel parameters."""
+    the kernel parameters.
+
+    compute_dtype: None ('high'), the 'mixed' sentinel (f64 Gram, refined
+    factor and solve, f32 gradient work) or torch.float32 ('fast': f32
+    Gram, factor and solves).  The n-length sums accumulate in f64."""
     n = xs.shape[0]
-    diag_vec = torch.full((D.shape[0], n), 1.0 + jitter, dtype=xs.dtype,
+    dt, vdt = _dtypes(compute_dtype, xs)
+    diag_vec = torch.full((D.shape[0], n), 1.0 + jitter, dtype=dt,
                           device=xs.device)
     B = gram_factor_target(xs, lLmb, lLmb0, lnug, row_scale=D,
-                           diag_vec=diag_vec, kind=kernel)
-    LB = _factor(B)
+                           diag_vec=diag_vec, compute_dtype=compute_dtype,
+                           kind=kernel)
+    LB = _factor(B, compute_dtype)
+    a_c = a.to(LB.dtype)
+    w = _factor_solve_vec(LB, B, a_c, compute_dtype)
     del B
-    w = _factor_solve_vec(LB, a)
     logdet = linalg.chol_logdet(LB)
-    Cw = (a - (1.0 + jitter) * w) / D[:, None]
-    quad = torch.sum((a * Cw).to(torch.float64), dim=-1)
+    Dm = D.to(LB.dtype)
+    Cw = (a_c - (1.0 + jitter) * w) / Dm[:, None]
+    quad = torch.sum((a_c * Cw).to(torch.float64), dim=-1)
     terms = 0.5 * logdet - 0.5 * quad
     if not want_kernel_grad:
         return terms, Cw, None
-    Binv = linalg.chol_inverse(LB)
+    # 'mixed' seeds the inverse from the f32 cast of the refined factor
+    Binv = _factor_inverse(LB.to(vdt), compute_dtype).to(vdt)
     del LB
-    # the cotangent 0.5 D B^{-1} - 0.5 w w^T of the Gram
-    kgrad = gram_vjp_fused(xs, lLmb, lLmb0, lnug, M=Binv, alpha=0.5 * D,
-                           beta=-0.5, w=w.contiguous(), kind=kernel)
+    # the cotangent 0.5 D B^{-1} - 0.5 w w^T of the Gram, in vdt: K2 runs
+    # in the cotangent's dtype
+    kgrad = gram_vjp_fused(xs, lLmb, lLmb0, lnug, M=Binv,
+                           alpha=0.5 * Dm.to(vdt), beta=-0.5,
+                           w=w.to(vdt).contiguous(), kind=kernel)
     return terms, Cw, kgrad
+
+
+def _scale(g, t):
+    return None if g is None else t.to(g.dtype) * g
 
 
 class _FullTerms(torch.autograd.Function):
@@ -131,37 +183,38 @@ class _FullTerms(torch.autograd.Function):
     costs what the value alone costs."""
 
     @staticmethod
-    def forward(ctx, jitter, kernel, xs, lLmb, lLmb0, lnug, D, a):
+    def forward(ctx, compute_dtype, jitter, kernel, xs, lLmb, lLmb0, lnug, D,
+                a):
         want = ctx.needs_input_grad
         terms, Cw, kgrad = _full_terms_impl(
-            jitter, kernel, xs, lLmb, lLmb0, lnug, D, a,
-            want_kernel_grad=any(want[3:6]))
+            compute_dtype, jitter, kernel, xs, lLmb, lLmb0, lnug, D, a,
+            want_kernel_grad=any(want[4:7]))
         glens0, gamp0, gnug0 = kgrad if kgrad is not None else (None,) * 3
         ctx.save_for_backward(glens0, gamp0, gnug0,
-                              -Cw if want[7] else None)
+                              (-Cw).to(a.dtype) if want[8] else None)
         return terms
 
     @staticmethod
     def backward(ctx, tbar):
         glens0, gamp0, gnug0, abar0 = ctx.saved_tensors
-
-        def scale(g, t):
-            return None if g is None else t.to(g.dtype) * g
-        return (None, None, None, scale(glens0, tbar[:, None]),
-                scale(gamp0, tbar), scale(gnug0, tbar), None,
-                scale(abar0, tbar[:, None]))
+        return (None, None, None, None, _scale(glens0, tbar[:, None]),
+                _scale(gamp0, tbar), _scale(gnug0, tbar), None,
+                _scale(abar0, tbar[:, None]))
 
 
-def _full_terms(jitter: float, kernel: str, xs, lLmb, lLmb0, lnug, D, a):
+def _full_terms(compute_dtype, jitter: float, kernel: str, xs, lLmb, lLmb0,
+                lnug, D, a):
     if not torch.is_grad_enabled():
         # needs_input_grad follows requires_grad even under no_grad
-        return _full_terms_impl(jitter, kernel, xs, lLmb, lLmb0, lnug, D,
-                                a)[0]
-    return _FullTerms.apply(jitter, kernel, xs, lLmb, lLmb0, lnug, D, a)
+        return _full_terms_impl(compute_dtype, jitter, kernel, xs, lLmb,
+                                lLmb0, lnug, D, a)[0]
+    return _FullTerms.apply(compute_dtype, jitter, kernel, xs, lLmb, lLmb0,
+                            lnug, D, a)
 
 
-def neglpost_full(free: P.FreeParams, data: FullData, jitter: float = 0.0,
-                  q_chunk: int | None = None, kernel: str = 'matern32'):
+def neglpost_full(free: P.FreeParams, data: FullData, compute_dtype=None,
+                  jitter: float = 0.0, q_chunk: int | None = None,
+                  kernel: str = 'matern32'):
     """Full-data integrated negative log marginal posterior (reference
     lcgp.py:635-666): sum_k t_k plus the noise terms
     (n/2) sum_p lsigma2_p + 0.5 ||Y / sigma||_F^2.  Not divided by n."""
@@ -174,7 +227,8 @@ def neglpost_full(free: P.FreeParams, data: FullData, jitter: float = 0.0,
     a = (data.ys.T @ psi_c).T                              # (q, n)
 
     def body(stacks):
-        return _full_terms(jitter, kernel, data.xs, *stacks)  # (qc,)
+        return _full_terms(compute_dtype, jitter, kernel, data.xs,
+                           *stacks)                        # (qc,)
 
     terms = _map_components(body, (lLmb, lLmb0, lnug, data.diag_D, a),
                             q_chunk)
@@ -184,33 +238,38 @@ def neglpost_full(free: P.FreeParams, data: FullData, jitter: float = 0.0,
     return nlp
 
 
-def _rep_terms_impl(jitter: float, kernel: str, xs, sr, lLmb, lLmb0, lnug,
-                    D, b, want_kernel_grad: bool = False):
+def _rep_terms_impl(compute_dtype, jitter: float, kernel: str, xs, sr,
+                    lLmb, lLmb0, lnug, D, b, want_kernel_grad: bool = False):
     """The rep component terms (qc,), -C u (the gradient in b), and, when
     ``want_kernel_grad``, the gradients (glens, gamp, gnug) of the terms in
-    the kernel parameters."""
-    r2 = torch.square(sr)             # r through its square root, as JAX has it
-    lam = 1.0 / (D[:, None] * r2[None, :])                   # (qc, n)
+    the kernel parameters.  compute_dtype as in :func:`_full_terms_impl`."""
+    dt, vdt = _dtypes(compute_dtype, xs)
+    Dc = D.to(dt)
+    r2 = torch.square(sr.to(dt))   # r through its square root, as in JAX
+    lam = 1.0 / (Dc[:, None] * r2[None, :])                  # (qc, n)
     # jitter scaled by the amplitude (0 under 'high')
-    diag_vec = (lam + jitter * (1.0 + lLmb0[:, None])).contiguous()
-    A = gram_factor_target(xs, lLmb, lLmb0, lnug, row_scale=torch.ones_like(D),
-                           diag_vec=diag_vec, kind=kernel)
-    LT = _factor(A)
+    diag_vec = (lam + jitter * (1.0 + lLmb0.to(dt)[:, None])).contiguous()
+    A = gram_factor_target(xs, lLmb, lLmb0, lnug,
+                           row_scale=torch.ones_like(Dc), diag_vec=diag_vec,
+                           compute_dtype=compute_dtype, kind=kernel)
+    LT = _factor(A, compute_dtype)
+    lam_b = lam * b.to(dt)
+    u = _factor_solve_vec(LT, A, lam_b, compute_dtype)
     del A
-    lam_b = lam * b
-    u = _factor_solve_vec(LT, lam_b)
     Cu = lam_b - diag_vec * u                                # C u from A u
-    logdetA = (torch.sum(torch.log(D[:, None] * r2[None, :]), dim=-1)
+    logdetA = (torch.sum(torch.log(Dc[:, None] * r2[None, :])
+                         .to(torch.float64), dim=-1)
                + linalg.chol_logdet(LT))
-    terms = -0.5 * torch.sum(b * Cu, dim=-1) + 0.5 * logdetA
+    terms = (-0.5 * torch.sum((b.to(dt) * Cu).to(torch.float64), dim=-1)
+             + 0.5 * logdetA)
     if not want_kernel_grad:
         return terms, Cu, None
-    Tinv = linalg.chol_inverse(LT)                           # (C + Lam)^{-1}
+    Tinv = _factor_inverse(LT.to(vdt), compute_dtype).to(vdt)  # (C + Lam)^-1
     del LT
     # the cotangent 0.5 A^{-1} - 0.5 u u^T of the Gram
     kgrad = gram_vjp_fused(xs, lLmb, lLmb0, lnug, M=Tinv,
-                           alpha=torch.full_like(D, 0.5), beta=-0.5,
-                           w=u.contiguous(), kind=kernel)
+                           alpha=torch.full_like(Dc, 0.5, dtype=vdt),
+                           beta=-0.5, w=u.to(vdt).contiguous(), kind=kernel)
     return terms, Cu, kgrad
 
 
@@ -220,36 +279,37 @@ class _RepTerms(torch.autograd.Function):
     ``ctx.needs_input_grad`` names."""
 
     @staticmethod
-    def forward(ctx, jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b):
+    def forward(ctx, compute_dtype, jitter, kernel, xs, sr, lLmb, lLmb0,
+                lnug, D, b):
         want = ctx.needs_input_grad
         terms, Cu, kgrad = _rep_terms_impl(
-            jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b,
-            want_kernel_grad=any(want[4:7]))
+            compute_dtype, jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b,
+            want_kernel_grad=any(want[5:8]))
         glens0, gamp0, gnug0 = kgrad if kgrad is not None else (None,) * 3
         ctx.save_for_backward(glens0, gamp0, gnug0,
-                              -Cu if want[8] else None)
+                              (-Cu).to(b.dtype) if want[9] else None)
         return terms
 
     @staticmethod
     def backward(ctx, tbar):
         glens0, gamp0, gnug0, bbar0 = ctx.saved_tensors
-
-        def scale(g, t):
-            return None if g is None else t.to(g.dtype) * g
-        return (None, None, None, None, scale(glens0, tbar[:, None]),
-                scale(gamp0, tbar), scale(gnug0, tbar), None,
-                scale(bbar0, tbar[:, None]))
+        return (None, None, None, None, None, _scale(glens0, tbar[:, None]),
+                _scale(gamp0, tbar), _scale(gnug0, tbar), None,
+                _scale(bbar0, tbar[:, None]))
 
 
-def _rep_terms(jitter: float, kernel: str, xs, sr, lLmb, lLmb0, lnug, D, b):
+def _rep_terms(compute_dtype, jitter: float, kernel: str, xs, sr, lLmb,
+               lLmb0, lnug, D, b):
     if not torch.is_grad_enabled():
-        return _rep_terms_impl(jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D,
-                               b)[0]
-    return _RepTerms.apply(jitter, kernel, xs, sr, lLmb, lLmb0, lnug, D, b)
+        return _rep_terms_impl(compute_dtype, jitter, kernel, xs, sr, lLmb,
+                               lLmb0, lnug, D, b)[0]
+    return _RepTerms.apply(compute_dtype, jitter, kernel, xs, sr, lLmb,
+                           lLmb0, lnug, D, b)
 
 
-def neglpost_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
-                 q_chunk: int | None = None, kernel: str = 'matern32'):
+def neglpost_rep(free: P.FreeParams, data: RepData, compute_dtype=None,
+                 jitter: float = 0.0, q_chunk: int | None = None,
+                 kernel: str = 'matern32'):
     """Replication negative log marginal on the unique sites (reference
     lcgp.py:554-630): sum_k t_k plus the diagonal data terms, all divided
     by n, the number of unique sites."""
@@ -273,7 +333,8 @@ def neglpost_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
     b = r[None, :] * (data.ybar.T @ v).T                   # (q, n)
 
     def body(stacks):
-        return _rep_terms(jitter, kernel, data.xs, sr, *stacks)  # (qc,)
+        return _rep_terms(compute_dtype, jitter, kernel, data.xs, sr,
+                          *stacks)                         # (qc,)
 
     terms = _map_components(body, (lLmb, lLmb0, lnug, data.diag_D, b),
                             q_chunk)
@@ -281,7 +342,7 @@ def neglpost_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
     return nlp / n
 
 
-def make_loss(submethod: str, data, jitter: float = 0.0,
+def make_loss(submethod: str, data, compute_dtype=None, jitter: float = 0.0,
               q_chunk: int | None = None, kernel: str = 'matern32'):
     """Return ``loss(free_params)`` for the given submethod."""
     if submethod not in ('full', 'rep'):
@@ -289,6 +350,6 @@ def make_loss(submethod: str, data, jitter: float = 0.0,
     neglpost = neglpost_full if submethod == 'full' else neglpost_rep
 
     def loss(free):
-        return neglpost(free, data, jitter=jitter, q_chunk=q_chunk,
-                        kernel=kernel)
+        return neglpost(free, data, compute_dtype=compute_dtype,
+                        jitter=jitter, q_chunk=q_chunk, kernel=kernel)
     return loss

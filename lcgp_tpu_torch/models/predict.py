@@ -10,6 +10,11 @@ weights (C_k + Lam_k)^{-1} Lam_k b_k, which equal the reference's
 T_k = (C_k + Lam_k)^{-1} through the same factor.
 Components are processed in chunks of ``q_chunk`` by a Python loop, which
 bounds the (q_chunk, n, n) transients.
+
+``compute_dtype`` follows the loss: 'mixed' builds and keeps everything in
+f64 with the refined factor and solve (``ops/mixed.py``); ``torch.float32``
+('fast') builds the Gram, the factor, the solves and the latent outputs in
+f32, which the recombination casts up to the f64 basis.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from ..ops import linalg
 from ..ops.gram import gram_factor_target, gram_stack
 from ..ops.matern import matern32_diag
 from . import params as P
-from .likelihood import FullData, RepData, _bmv, _factor, _factor_solve_vec
+from .likelihood import (FullData, RepData, _bmv, _dtypes, _factor,
+                         _factor_solve_vec)
 
 
 class FullAux(NamedTuple):
@@ -62,43 +68,47 @@ def _full_b(free: P.FreeParams, data: FullData) -> torch.Tensor:
     return ((data.ys.T / torch.sqrt(sigma)[None, :]) @ data.phi).T
 
 
-def compute_aux_full(free: P.FreeParams, data: FullData, jitter: float = 0.0,
-                     kernel: str = 'matern32',
+def compute_aux_full(free: P.FreeParams, data: FullData, compute_dtype=None,
+                     jitter: float = 0.0, kernel: str = 'matern32',
                      q_chunk: int | None = None) -> FullAux:
     lLmb, lLmb0, _, lnug = P.constrain(free)
     b = _full_b(free, data)
     n = data.xs.shape[0]
+    dt, _ = _dtypes(compute_dtype, data.xs)
     chunks = []
     for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
-        diag_vec = torch.full((e - s, n), 1.0 + jitter, dtype=data.xs.dtype,
+        diag_vec = torch.full((e - s, n), 1.0 + jitter, dtype=dt,
                               device=data.xs.device)
         # Bmat = D C + (1 + jitter) I, written by one K1 launch on CUDA
         Bmat = gram_factor_target(data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
                                   row_scale=data.diag_D[s:e],
-                                  diag_vec=diag_vec, kind=kernel)
-        LB = _factor(Bmat)
+                                  diag_vec=diag_vec,
+                                  compute_dtype=compute_dtype, kind=kernel)
+        LB = _factor(Bmat, compute_dtype)
+        CinvM = _factor_solve_vec(LB, Bmat, b[s:e].to(LB.dtype),
+                                  compute_dtype)                   # (qc, n)
         del Bmat
-        CinvM = _factor_solve_vec(LB, b[s:e])                      # (qc, n)
         chunks.append((CinvM, LB))
     CinvM, LB = _cat(chunks)
     return FullAux(CinvM=CinvM, LB=LB)
 
 
 def predict_full_core(free: P.FreeParams, data: FullData, aux: FullAux, x0s,
-                      jitter: float = 0.0, kernel: str = 'matern32',
-                      q_chunk: int | None = None):
+                      compute_dtype=None, jitter: float = 0.0,
+                      kernel: str = 'matern32', q_chunk: int | None = None):
     """Latent predictive mean/var at standardized x0s.  Returns (ghat, gvar),
-    each (q, n0)."""
+    each (q, n0), in the aux's dtype."""
     lLmb, lLmb0, _, lnug = P.constrain(free)
     c00 = matern32_diag(x0s, lLmb0)                                # (q, n0)
     chunks = []
     for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
         c0 = gram_stack(x0s, data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
-                        same=False, kind=kernel)                   # (qc,n0,n)
+                        same=False, compute_dtype=compute_dtype,
+                        kind=kernel)                               # (qc,n0,n)
         ghat = _bmv(c0, aux.CinvM[s:e])
         M = linalg.solve_tri_lower(aux.LB[s:e], c0.mT)
-        gvar = c00[s:e] - data.diag_D[s:e, None] * torch.sum(torch.square(M),
-                                                              dim=-2)
+        gvar = (c00[s:e].to(M.dtype) - data.diag_D[s:e, None].to(M.dtype)
+                * torch.sum(torch.square(M), dim=-2))
         chunks.append((ghat, gvar))
     return _cat(chunks)
 
@@ -110,6 +120,8 @@ def recombine_full(free: P.FreeParams, data: FullData, ghat, gvar, ymean, ystd):
     sigma = torch.exp(lsig)
 
     psi = data.phi.T * torch.sqrt(sigma)[None, :]                 # (q, p)
+    # f32 latents under 'fast' are promoted, as jnp promotes them
+    ghat, gvar = ghat.to(psi.dtype), gvar.to(psi.dtype)
     predmean = psi.T @ ghat                                       # (p, n0)
     confvar = gvar.T @ torch.square(psi)                          # (n0, p)
     predvar = confvar + sigma[None, :]
@@ -127,7 +139,8 @@ def fullcov_full(free: P.FreeParams, data: FullData, gvar, ystd):
     sigma = torch.exp(lsig)
     psi = data.phi.T * torch.sqrt(sigma)[None, :]                 # (q, p)
 
-    CH = torch.einsum('kn,kp->npk', torch.sqrt(gvar), psi)        # (n0, p, q)
+    CH = torch.einsum('kn,kp->npk', torch.sqrt(gvar).to(psi.dtype),
+                      psi)                                        # (n0, p, q)
     cov = CH @ CH.mT
     cov = cov + torch.diag(sigma)[None, :, :]
     ystd_vec = ystd[:, 0]
@@ -155,8 +168,8 @@ def _rep_psi_c(free: P.FreeParams, data: RepData) -> torch.Tensor:
     return data.phi.T * _rep_sigma_inv_sqrt(free, data)[None, :]   # (q, p)
 
 
-def compute_aux_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
-                    kernel: str = 'matern32',
+def compute_aux_rep(free: P.FreeParams, data: RepData, compute_dtype=None,
+                    jitter: float = 0.0, kernel: str = 'matern32',
                     q_chunk: int | None = None) -> RepAux:
     """Rep-path predictive aux: one factor of C + diag(1/(D r) + jitter)
     shared by the dual weights and the variances, with the training loss's
@@ -171,12 +184,16 @@ def compute_aux_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
     chunks = []
     for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
         C = gram_stack(data.xs, data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
-                       same=True, kind=kernel)
-        lam = 1.0 / (data.diag_D[s:e, None] * data.r[None, :])     # (qc, n)
-        A = linalg.add_diag(C, lam + jitter * (1.0 + lLmb0[s:e, None]))
-        LT = _factor(A)
+                       same=True, compute_dtype=compute_dtype, kind=kernel)
+        D = data.diag_D[s:e].to(C.dtype)
+        # lam in f64 (D r), then rounded into A's dtype, as lcgp_tpu forms it
+        lam = 1.0 / (D[:, None] * data.r[None, :])                 # (qc, n)
+        A = linalg.add_diag(
+            C, lam + jitter * (1.0 + lLmb0[s:e, None].to(C.dtype)))
+        LT = _factor(A, compute_dtype)
+        CinvM = _factor_solve_vec(LT, A, (lam * b[s:e]).to(LT.dtype),
+                                  compute_dtype)                   # (qc, n)
         del A
-        CinvM = _factor_solve_vec(LT, lam * b[s:e])                # (qc, n)
         chunks.append((CinvM, LT, _bmv(C, CinvM)))
         del C
     CinvM, LT, mks = _cat(chunks)
@@ -184,19 +201,22 @@ def compute_aux_rep(free: P.FreeParams, data: RepData, jitter: float = 0.0,
 
 
 def predict_rep_core(free: P.FreeParams, data: RepData, aux: RepAux, x0s,
-                     jitter: float = 0.0, kernel: str = 'matern32',
-                     q_chunk: int | None = None):
+                     compute_dtype=None, jitter: float = 0.0,
+                     kernel: str = 'matern32', q_chunk: int | None = None):
     """Latent predictive mean/var at standardized x0s.  Returns (ghat, gvar),
-    each (q, n0); unlike the full path the variance has no D factor."""
+    each (q, n0) in the aux's dtype; unlike the full path the variance has
+    no D factor."""
     lLmb, lLmb0, _, lnug = P.constrain(free)
     c00 = matern32_diag(x0s, lLmb0)                                # (q, n0)
     chunks = []
     for s, e in _chunk_slices(int(data.phi.shape[1]), q_chunk):
         c0 = gram_stack(x0s, data.xs, lLmb[s:e], lLmb0[s:e], lnug[s:e],
-                        same=False, kind=kernel)                   # (qc,n0,n)
+                        same=False, compute_dtype=compute_dtype,
+                        kind=kernel)                               # (qc,n0,n)
         ghat = _bmv(c0, aux.CinvM[s:e])
         M = linalg.solve_tri_lower(aux.LT[s:e], c0.mT)
-        chunks.append((ghat, c00[s:e] - torch.sum(torch.square(M), dim=-2)))
+        chunks.append((ghat, c00[s:e].to(M.dtype)
+                       - torch.sum(torch.square(M), dim=-2)))
     return _cat(chunks)
 
 
@@ -213,6 +233,7 @@ def recombine_rep(free: P.FreeParams, data: RepData, ghat, gvar,
     sigma_var_used = sigma_raw / torch.square(data.scale)
 
     Psi = data.phi * sigma_sqrt_used[:, None]                     # (p, q)
+    ghat, gvar = ghat.to(Psi.dtype), gvar.to(Psi.dtype)
     predmean_used = Psi @ ghat                                    # (p, n0)
     confvar_used = torch.square(Psi) @ gvar
     predvar_used = confvar_used + sigma_var_used[:, None]

@@ -16,13 +16,15 @@ covmat.py:5-55), quirks included:
 :func:`matern32_gram` dispatches on the device of its inputs: CPU tensors
 go to the plain version :func:`matern32_gram_plain`; CUDA tensors go to the
 hand-written kernel ``csrc/matern32_gram.cu`` (K1), or the call raises.
-Every launch of K1 adds one to ``matern32_gram.launches``.
+Every launch of K1 adds one to ``matern32_gram.launches``, and a launch of
+its f32 instantiation also to ``matern32_gram.launches_f32``.
 
 Its VJP is dispatched the same way: :func:`matern32_gram_vjp` (any
 cotangent) and :func:`matern32_gram_vjp_fused` (the loss's cotangent
 ``alpha_k M + beta w w^T``, never formed on CUDA) run the plain versions on
 CPU tensors and the kernel ``csrc/matern32_gram_vjp.cu`` (K2) on CUDA
-tensors.  Every launch of K2 adds one to ``matern32_gram_vjp.launches``.
+tensors.  Every launch of K2 adds one to ``matern32_gram_vjp.launches``
+(and, in f32, to ``matern32_gram_vjp.launches_f32``).
 """
 from __future__ import annotations
 
@@ -158,6 +160,7 @@ def launch_matern32(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
     if err != 0:
         raise RuntimeError(f"matern32 kernel launch failed: cudaError {err}")
     matern32_gram.launches += 1
+    matern32_gram.launches_f32 += int(x1.dtype == torch.float32)
     return out, c0
 
 
@@ -178,6 +181,7 @@ def matern32_gram(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
 
 
 matern32_gram.launches = 0
+matern32_gram.launches_f32 = 0     # of those, the f32 instantiation's
 
 
 def matern32_gram_vjp_plain(x1, x2, lengthscales, amplitudes, nuggets, *,
@@ -334,6 +338,7 @@ def launch_matern32_vjp(x1, x2, lengthscales, amplitudes, nuggets, *,
         raise RuntimeError(f"matern32 VJP kernel launch failed: "
                            f"cudaError {err}")
     matern32_gram_vjp.launches += 1
+    matern32_gram_vjp.launches_f32 += int(dt == torch.float32)
     return glens, gamp, gnug
 
 
@@ -352,6 +357,7 @@ def matern32_gram_vjp(x1, x2, lengthscales, amplitudes, nuggets, *,
 
 
 matern32_gram_vjp.launches = 0
+matern32_gram_vjp.launches_f32 = 0
 
 
 def matern32_gram_vjp_fused(x, lengthscales, amplitudes, nuggets, *, M,
@@ -359,15 +365,25 @@ def matern32_gram_vjp_fused(x, lengthscales, amplitudes, nuggets, *, M,
     """(glens, gamp, gnug) of the same-point Gram at the cotangent
     ``alpha_k M_k + beta w_k w_k^T``.
 
-    CPU tensors form the cotangent and run the plain VJP; CUDA tensors run
-    K2, which reads M and w and never forms the cotangent.  Any other
-    device raises."""
+    The VJP runs in M's dtype, as the JAX ``matern32_gram_vjp`` runs in
+    the cotangent's (``lcgp_tpu/ops/matern.py:108-112``), and the results
+    come back in the parameters' dtypes.  CPU tensors form the cotangent
+    and run the plain VJP; CUDA tensors run K2, which reads M and w and
+    never forms the cotangent.  Any other device raises."""
+    dt = M.dtype
+    alpha, w = alpha.to(dt), w.to(dt)
     if x.device.type == 'cpu':
         return matern32_gram_vjp_fused_plain(x, lengthscales, amplitudes,
                                              nuggets, M=M, alpha=alpha,
                                              beta=beta, w=w)
-    return launch_matern32_vjp(x, x, lengthscales, amplitudes, nuggets,
-                               same=True, M=M, alpha=alpha, beta=beta, w=w)
+    # K2 takes every operand in one dtype
+    xc, ls, amp, nug = (t.to(dt).contiguous() for t in
+                        (x, lengthscales, amplitudes, nuggets))
+    got = launch_matern32_vjp(xc, xc, ls, amp, nug, same=True, M=M,
+                              alpha=alpha.contiguous(), beta=beta,
+                              w=w.contiguous())
+    return tuple(g.to(p.dtype) for g, p in
+                 zip(got, (lengthscales, amplitudes, nuggets)))
 
 
 def matern32_diag(x0, amplitudes):

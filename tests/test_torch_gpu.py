@@ -442,3 +442,128 @@ def test_lcgp_rep_on_card_matches_cpu(dev):
     for a, b in zip(out[:3], cpu.predict(x0)):
         assert a.device.type == 'cuda'
         torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the precision modes: K1 and K2 in f32 on the 'fast' and 'mixed' paths
+# ---------------------------------------------------------------------------
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def test_kernel_f32_at_the_fast_loss_shape_with_its_epilogue(dev):
+    # B = D C + (1 + jitter) I, all in f32, against the plain version on
+    # the same f32 inputs (rtol 1e-4, atol 1e-6: each S subtracts first in
+    # K1 and scales first in the plain version, eps32 |x| / l apart)
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    q, n = 4, 600
+    x, _, ls, amp, nug = _inputs(dev, 90, n, 1, 8, q)
+    D = torch.linspace(0.5, 20.0, q, dtype=torch.float64, device=dev)
+    dv = torch.full((q, n), 1.0 + 1e-6, dtype=torch.float32, device=dev)
+    before = (TM.matern32_gram.launches, TM.matern32_gram.launches_f32)
+    got = gram_factor_target(x, ls, amp, nug, row_scale=D, diag_vec=dv,
+                             compute_dtype=torch.float32)
+    assert (TM.matern32_gram.launches, TM.matern32_gram.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    f32 = [t.float() for t in (x, ls, amp, nug)]
+    C = TM.matern32_gram_plain(f32[0], f32[0], *f32[1:], same=True)
+    ref = D.float()[:, None, None] * C + torch.diag_embed(dv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, got.mT)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+def test_vjp_kernel_f32_at_the_mixed_operating_point(dev):
+    # M = the f32 potri seed of a refined factor, alpha = D/2 in f32 and
+    # w = B^{-1} a refined in f64, cast to f32: what 'mixed' hands K2
+    from lcgp_tpu_torch.ops import mixed
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    q, n = 4, 300
+    x, _, ls, amp, nug = _inputs(dev, 91, n, 1, 8, q)
+    D = torch.linspace(0.5, 20.0, q, dtype=torch.float64, device=dev)
+    a = torch.as_tensor(np.random.default_rng(91).standard_normal((q, n)),
+                        device=dev)
+    B = gram_factor_target(x, ls, amp, nug, row_scale=D,
+                           diag_vec=torch.ones((q, n), dtype=torch.float64,
+                                               device=dev))
+    L = mixed.cholesky_mixed(B, refine_steps=2, seed_jitter=1e-6)
+    w = mixed.cho_solve_vec_refined(L, B, a).float()
+    M = mixed.chol_inverse_from_factor_mixed(L.float(), newton_steps=0)
+    alpha = (0.5 * D).float()
+    before = TM.matern32_gram_vjp.launches_f32
+    got = TM.matern32_gram_vjp_fused(x, ls, amp, nug, M=M, alpha=alpha,
+                                     beta=-0.5, w=w)
+    assert TM.matern32_gram_vjp.launches_f32 == before + 1
+    f32 = [t.float() for t in (x, ls, amp, nug)]
+    ref = TM.matern32_gram_vjp_fused_plain(*f32, M=M, alpha=alpha, beta=-0.5,
+                                           w=w)
+    scale = TM.matern32_gram_vjp_scale(
+        x, x, ls, amp, nug, same=True,
+        cbar=TM.fused_cotangent(M.double(), alpha.double(), -0.5, w.double()))
+    torch.cuda.synchronize()
+    # the results come back in the parameters' dtype
+    assert all(g.dtype == torch.float64 for g in got)
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[torch.float32])
+
+
+def _model_pair(dev, precision, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (300, 3))
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 2],
+                   x[:, 0] * x[:, 2], np.sin(x.sum(1))])
+    y = y + 0.05 * rng.standard_normal(y.shape)
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=3, precision=precision, device=dev)
+    cpu = lcgp_tpu_torch.LCGP(y, x, q=3, precision=precision, device='cpu')
+    assert gpu.precision == cpu.precision == precision
+    return gpu, cpu, rng.uniform(0, 1, (20, 3))
+
+
+def _loss_and_grad(m):
+    from lcgp_tpu_torch.models import likelihood as TLik
+    from lcgp_tpu_torch.models import params as TP
+    free = TP.FreeParams(*(t.clone().requires_grad_(True) for t in m.free))
+    v = TLik.neglpost_full(free, m._data, compute_dtype=m._compute_dtype,
+                           jitter=m._jitter)
+    return v, torch.autograd.grad(v, free)
+
+
+@pytest.mark.parametrize('precision', ['mixed', 'fast'])
+def test_lcgp_precision_on_card_matches_cpu(dev, precision):
+    """A 'mixed' and a 'fast' model at n=300 on the card against the same
+    model on the CPU.  'mixed': loss rtol 1e-9, predictions rtol 1e-7
+    (atol 1e-9), gradients within 5e-4 of each leaf's max |g| (f32-grade
+    by design).  'fast': two f32 factorizations, so the loss within
+    sum_k n eps32 cond(B_k) and the predictions and gradients within
+    n eps32 max_k cond(B_k) of their largest entry."""
+    from lcgp_tpu_torch.models import params as TP
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    gpu, cpu, x0 = _model_pair(dev, precision, 8)
+    k1, k2 = TM.matern32_gram.launches_f32, TM.matern32_gram_vjp.launches_f32
+    vg, gg = _loss_and_grad(gpu)
+    # one K2 launch in f32 in both modes; K1 in f32 under 'fast' only
+    assert TM.matern32_gram_vjp.launches_f32 == k2 + 1
+    assert TM.matern32_gram.launches_f32 == k1 + (precision == 'fast')
+    vc, gc = _loss_and_grad(cpu)
+    ls, amp, _, nug = TP.constrain(cpu.free)
+    B = gram_factor_target(cpu.x, ls, amp, nug, row_scale=cpu.diag_D,
+                           diag_vec=torch.ones((3, 300), dtype=torch.float64))
+    conds = np.linalg.cond(B.numpy())
+    f32_tol = 300 * EPS32 * float(np.max(conds))
+    if precision == 'mixed':
+        torch.testing.assert_close(vg.cpu(), vc, rtol=1e-9, atol=0)
+        grad_tol = 5e-4
+    else:
+        assert abs(float(vg.detach()) - float(vc.detach())) <= np.sum(
+            300 * EPS32 * conds)
+        grad_tol = f32_tol
+    for a, b in zip(gg, gc):
+        assert a.device.type == 'cuda' and a.dtype == torch.float64
+        err = float((a.cpu() - b).abs().max())
+        assert err <= grad_tol * float(b.abs().max()), err
+    for a, b in zip(gpu.predict(x0), cpu.predict(x0)):
+        assert a.device.type == 'cuda'
+        if precision == 'mixed':
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-7, atol=1e-9)
+        else:
+            err = float((a.cpu() - b).abs().max())
+            assert err <= f32_tol * float(b.abs().max()), err

@@ -296,7 +296,8 @@ def test_full_terms_gradcheck():
             t(rng.standard_normal((2, 12)), True))
 
     def terms(ls, amp, nug, a):
-        return TLik._FullTerms.apply(0.0, 'matern32', xs, ls, amp, nug, D, a)
+        return TLik._FullTerms.apply(None, 0.0, 'matern32', xs, ls, amp, nug,
+                                     D, a)
     assert torch.autograd.gradcheck(terms, args, eps=1e-6, atol=1e-8,
                                     rtol=1e-6)
 

@@ -294,9 +294,6 @@ def test_cpu_model_never_launches_the_kernel(pair):
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(precision='fast'), 'item 11'),
-    (dict(precision='mixed'), 'item 11'),
-    (dict(precision='auto'), 'item 11'),
     (dict(kernel='rbf'), 'item 13'),
     (dict(kernel='matern52'), 'item 13'),
     (dict(inducing=5), 'item 15'),
@@ -324,8 +321,6 @@ def test_rep_submethod_is_ported():
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(method='lbfgs-jax'), 'item 12'),
-    (dict(method='hybrid'), 'item 12'),
     (dict(mesh=object()), 'item 17'),
 ])
 def test_unported_fit_methods_raise(pair, kw, item):

@@ -205,8 +205,8 @@ def test_rep_terms_gradcheck():
             t(rng.standard_normal((2, 20)), True))
 
     def terms(ls, amp, nug, b):
-        return TLik._RepTerms.apply(0.0, 'matern32', xs, sr, ls, amp, nug, D,
-                                    b)
+        return TLik._RepTerms.apply(None, 0.0, 'matern32', xs, sr, ls, amp,
+                                    nug, D, b)
     assert torch.autograd.gradcheck(terms, args, eps=1e-6, atol=1e-8,
                                     rtol=1e-6)
 
@@ -481,8 +481,9 @@ def test_config5_fitted_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing lcgp_tpu_torch and every module in it, the rep path's
-    included, loads neither JAX nor lcgp_tpu."""
+    """Importing lcgp_tpu_torch and every module in it, the rep path's and
+    the precision modes' included, loads neither JAX, nor optax, nor
+    lcgp_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lcgp_tpu_torch\n"
@@ -490,9 +491,10 @@ def test_port_imports_no_jax():
         "    lcgp_tpu_torch.__path__, 'lcgp_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'lcgp_tpu_torch.models.replication' in names, names\n"
+        "for need in ('models.replication', 'ops.mixed', 'fit.lbfgs'):\n"
+        "    assert 'lcgp_tpu_torch.' + need in names, names\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'lcgp_tpu'))\n"
+        "             ('jax', 'jaxlib', 'optax', 'lcgp_tpu'))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
