@@ -2,15 +2,18 @@
 """Smoke run of the PyTorch port (lcgp_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against DIR   # K1/K2 times against DIR's, only
+    python3 chip_smoke.py --against DIR   # K1/K2 times and bits against DIR's
 
 Phases, each printing its own lines:
 
 1. fail unless CUDA is available; print the card's name and power limit;
-2. build the hand-written CUDA kernels K1 (csrc/matern32_gram.cu) and K2
-   (csrc/matern32_gram_vjp.cu) from the sources in this checkout, one nvcc
-   per source, and print the build time and ptxas's registers, spills and
-   shared memory per instantiation (a spill at MAXD <= 16 fails);
+2. build the hand-written CUDA kernels from the sources in this checkout,
+   one nvcc per source: K1 (csrc/matern32_gram.cu) and K2
+   (csrc/matern32_gram_vjp.cu), K3 (csrc/matern52_gram.cu and its VJP) and
+   K4 (csrc/rbf_gram.cu and its VJP), every one an instantiation of
+   csrc/gram_kernel.cuh or csrc/gram_vjp_kernel.cuh; print the build time
+   and ptxas's registers, spills and shared memory per instantiation (a
+   spill at MAXD <= 16 fails);
 3. hold K1 against its plain PyTorch version on the card at the main path's
    shapes (f64 square with epilogue and C0, exactly symmetric; the rep
    path's epilogue, row scale 1 and a diagonal 1/(D_k r_i) that varies per
@@ -61,7 +64,24 @@ Phases, each printing its own lines:
    'lbfgs-jax' with K1 and K2 f32 launches equal to nfev, its aux and 20
    requests; precision='auto' resolving to 'mixed'; and the three modes
    timed side by side with a profile of a 'mixed' and a 'fast' loss+grad
-   evaluation.
+   evaluation;
+10. Matern 5/2 (K3) and the squared exponential (K4) at config 4, each
+   kind in turn: its Gram kernel against the plain version, f64 and f32
+   (square with the loss's and the rep epilogue, exactly symmetric with C0
+   exactly 1 on the diagonal; the request shape; a ragged shape), its VJP
+   (the fused cotangent at a real B^-1 and w, two launches bit for bit
+   equal; a random non-symmetric cotangent; f32 at the 'fast' operating
+   point), each timed in turns with its plain version and its bound (K4
+   also beside the GEMM-form composition the JAX package runs); the Gram
+   at the fitted config-4 lengthscales (1e-6 floor) against an
+   extended-precision recomputation; then the main path with the kind's
+   counts set to 0: the f64 model from its init (one loss+grad evaluation
+   checked against the plain kernels and central differences,
+   ``fit(method='scipy', maxiter=KIND_MAXITER)`` with both kernels launched
+   once per evaluation, the aux, 20 requests, one ``return_fullcov``
+   request, peak memory, RMSE), one 'fast' loss+grad evaluation on the f32
+   instantiations, 'mixed' against 'high' at the init, and the rep path at
+   phase 4's size against the CPU.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -70,7 +90,9 @@ line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines are printed.  With ``--against DIR`` (another checkout,
 e.g. the parent commit unpacked with ``git archive``) it builds both
 checkouts' kernels, times K1 and K2 of each at the main path's shapes in
-turns, prints one JSON line and stops.  Imports nothing of JAX.
+turns (f64 and f32), fails unless both give the same bits, prints one JSON
+line and stops; an older checkout has no K3 or K4, so only K1 and K2 are
+compared.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -96,10 +118,22 @@ CONFIG5_RMSE = 0.013530078231167635
 REP_MAXITER = 10
 # the 'fast' fit's iteration cap at config 4 (phase 9)
 FAST_MAXITER = 20
+# the Matern 5/2 and squared-exponential fits' iteration cap (phase 10)
+KIND_MAXITER = 10
 K1_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram.cu"
 K1_REPLACES = "lcgp_tpu/ops/matern_pallas.py:200 (_fwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:27)"
 K2_SOURCE = "lcgp_tpu_torch/csrc/matern32_gram_vjp.cu"
 K2_REPLACES = "lcgp_tpu/ops/matern_pallas.py:233 (_bwd_call, deleted in b21a99c; live successor lcgp_tpu/ops/matern.py:86)"
+# phase 10's kernel families: kind -> what its Gram and VJP kernels
+# replace; neither was ever a Pallas kernel
+REPLACES = {
+    "matern52": ("none (jnp): lcgp_tpu/ops/matern52.py:27 (matern52_gram)",
+                 "none (jnp): lcgp_tpu/ops/matern52.py:63 (matern52_gram_vjp)"),
+    "rbf": ("none (jnp): lcgp_tpu/ops/rbf.py:22 (rbf_gram)",
+            "none (jnp): lcgp_tpu/ops/rbf.py:57 (rbf_gram_vjp)"),
+}
+# sqrt(5) and 5/3 as the kernels and the plain versions round them
+SQRT5, FIVE_THIRDS = 5.0 ** 0.5, 5.0 / 3.0
 F64_RTOL, F64_ATOL = 1e-12, 1e-14
 F32_RTOL, F32_ATOL = 1e-4, 1e-6
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s;
@@ -143,6 +177,71 @@ def k2_ops_per_entry(d):
     return 8 * d + 20
 
 
+def k3_ops_per_entry(d, epilogue):
+    """K3's (Matern 5/2): S (d), the factor's fma, multiply and fma into the
+    product (3d), the sum (d - 1), sqrt5 times it (1), exp (~16), C0 (1),
+    C (2) and the row scale (1)."""
+    return 5 * d + 19 + int(epilogue)
+
+
+def k3_vjp_ops_per_entry(d):
+    """K3's VJP, as the function needs it: the cotangent (2), S, factor,
+    product and sum (5d), sqrt5 times the sum and exp (~16), C0 and the G0
+    term (2) and per lengthscale sum 7 (1 + sqrt5 S, S^2, their product,
+    the prefix times the suffix, that times the term, the sum, and one fma
+    of the factor into the suffix).  The kernel also recomputes the factor
+    for the suffix (2d more), a register trade-off the bound does not
+    count."""
+    return 12 * d + 20
+
+
+def k4_ops_per_entry(d, epilogue):
+    """K4's (squared exponential): S (d), S^2 summed by fma (d), -1/2 times
+    it (1), exp (~16), C (2) and the row scale (1)."""
+    return 2 * d + 19 + int(epilogue)
+
+
+def k4_vjp_ops_per_entry(d):
+    """K4's VJP: the cotangent (2), S and its fma into the sum (2d), -1/2
+    times the sum and exp (~17), the G0 term (2) and per lengthscale sum 3
+    (S^2, the product, the sum)."""
+    return 5 * d + 21
+
+
+OPS_PER_ENTRY = {"matern32": (k1_ops_per_entry, k2_ops_per_entry),
+                 "matern52": (k3_ops_per_entry, k3_vjp_ops_per_entry),
+                 "rbf": (k4_ops_per_entry, k4_vjp_ops_per_entry)}
+
+
+def family_of(kind):
+    """A kernel kind's family (lcgp_tpu_torch/ops/launch.py): its label,
+    policy, plain versions, wrappers and launch counters."""
+    from lcgp_tpu_torch.ops.launch import family
+    return family(kind)
+
+
+def c0_extended(kind, S):
+    """C0 from the scaled distances S (..., d), in NumPy's dtype of S (the
+    extended-precision references), with the kernels' rounded constants."""
+    if kind == "rbf":
+        return np.exp(-0.5 * np.sum(S * S, axis=-1))
+    if kind == "matern52":
+        a, f3 = S.dtype.type(SQRT5), S.dtype.type(FIVE_THIRDS)
+        return (np.prod(1 + a * S + f3 * S * S, axis=-1)
+                * np.exp(-a * np.sum(S, axis=-1)))
+    return np.prod(1 + S, axis=-1) * np.exp(-np.sum(S, axis=-1))
+
+
+def lens_extended(kind, S):
+    """dlnC0/dlnS_t per dimension, the lengthscale sums' factor of C0."""
+    if kind == "rbf":
+        return S * S
+    if kind == "matern52":
+        a, f3 = S.dtype.type(SQRT5), S.dtype.type(FIVE_THIRDS)
+        return f3 * S * S * (1 + a * S) / (1 + a * S + f3 * S * S)
+    return S * S / (1 + S)
+
+
 def entries(n1, n2, same):
     """Entries per component the function needs: one triangle, with the
     diagonal, of a same-point Gram (it is exactly symmetric)."""
@@ -172,18 +271,22 @@ def say_bound(label, ms, nbytes, ops, rate=F64_INSTR_PER_S):
 
 def ptxas_report(log):
     """Registers, spills and shared memory of each kernel instantiation,
-    from nvcc's ``-Xptxas -v`` log; fails on a spill at MAXD <= 16."""
+    from nvcc's ``-Xptxas -v`` log, named as in ``gram_kernel<double,
+    MAXD=8, Matern32>``; fails on a spill at MAXD <= 16."""
     import re
     rows, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(matern32_[a-z_]+_kernel)I([df])(?:Li(\d+)E)?",
-                          m.group(1))
+            name = m.group(1)
+            k = re.search(r"(gram_[a-z_]*kernel)I([df])(?:Li(\d+)E)?", name)
+            # the policy, a length-prefixed name in namespace lcgp
+            p = re.search(r"N4lcgp(\d+)", name)
+            policy = name[p.end():p.end() + int(p.group(1))]
             cur = rows.setdefault(
                 f"{k.group(1)}<{'double' if k.group(2) == 'd' else 'float'}"
-                + (f", MAXD={k.group(3)}>" if k.group(3) else ">"),
-                {"maxd": int(k.group(3) or 0)})
+                + (f", MAXD={k.group(3)}" if k.group(3) else "")
+                + f", {policy}>", {"maxd": int(k.group(3) or 0)})
             continue
         if cur is None:
             continue
@@ -201,7 +304,8 @@ def ptxas_report(log):
         say(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes', 0)} bytes spilled, "
             f"{r.get('smem', 0)} bytes static smem")
-    check(len(rows) >= 18, f"ptxas reported {len(rows)} kernels, expected 18")
+    check(len(rows) >= 54, f"ptxas reported {len(rows)} kernels, expected "
+          "54 (3 families x 2 dtypes x (4 MAXD x 2 + 1))")
     spills = [n for n, r in rows.items()
               if r["maxd"] <= 16 and r.get("spill_bytes", 0)]
     check(not spills, f"spills at MAXD <= 16: {spills}")
@@ -238,11 +342,12 @@ def ptr(t):
 
 
 def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
-             diag_vec=None):
-    """A launch of K1 (the instantiation of x1's dtype) from ``lib``
-    through its C entry on buffers allocated once: the kernel's time
-    without the wrapper's host work (checks, allocation, 1/l).  It counts
-    no launch of the main path."""
+             diag_vec=None, family="matern32"):
+    """A launch of the family's Gram kernel (K1 by default; the
+    instantiation of x1's dtype) from ``lib`` through its C entry on
+    buffers allocated once: the kernel's time without the wrapper's host
+    work (checks, allocation, 1/l).  It counts no launch of the main
+    path."""
     import torch
     q, n1, n2, d = ls.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]
     out = torch.empty((q, n1, n2), dtype=x1.dtype, device=x1.device)
@@ -251,19 +356,20 @@ def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
             ptr(diag_vec), int(same), q, n1, n2, d, ptr(out), None,
             torch.cuda.current_stream(x1.device).cuda_stream)
 
-    fn = (lib.lcgp_matern32_gram_f64 if x1.dtype == torch.float64
-          else lib.lcgp_matern32_gram_f32)
+    fn = getattr(lib, f"lcgp_{family}_gram_"
+                 + ("f64" if x1.dtype == torch.float64 else "f32"))
 
     def launch():
-        check(fn(*args) == 0, "K1 launch failed")
+        check(fn(*args) == 0, f"{family} Gram launch failed")
     # every buffer stays alive while the kernel may read or write it
     launch.buffers = (x1, x2, ls, amp, nug, row_scale, diag_vec, out, inv)
+    launch.outputs = (out,)
     return launch
 
 
-def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w):
-    """The same for K2 (same-point, x's dtype) at the cotangent
-    alpha_k M_k + beta w_k w_k^T."""
+def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w, family="matern32"):
+    """The same for the family's VJP kernel (K2 by default; same-point,
+    x's dtype) at the cotangent alpha_k M_k + beta w_k w_k^T."""
     import torch
     q, n, d = ls.shape[0], x.shape[0], x.shape[1]
     inv = (1.0 / ls).contiguous()
@@ -276,12 +382,13 @@ def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w):
             *(ptr(o) for o in outs),
             torch.cuda.current_stream(x.device).cuda_stream)
 
-    fn = (lib.lcgp_matern32_gram_vjp_f64 if x.dtype == torch.float64
-          else lib.lcgp_matern32_gram_vjp_f32)
+    fn = getattr(lib, f"lcgp_{family}_gram_vjp_"
+                 + ("f64" if x.dtype == torch.float64 else "f32"))
 
     def launch():
-        check(fn(*args) == 0, "K2 launch failed")
+        check(fn(*args) == 0, f"{family} VJP launch failed")
     launch.buffers = (x, ls, amp, nug, M, alpha, w, inv, outs, part)
+    launch.outputs = tuple(outs)
     return launch
 
 
@@ -296,11 +403,13 @@ def config4():
     return x[:n], y[:, :n], x[n:], y[:, n:]
 
 
-def time_pair(label, kernel, plain, nbytes, moved="written"):
+def time_pair(label, kernel, plain, nbytes, moved="written", plain_reps=7):
     """Kernel and plain times in turns (plain, kernel, kernel, plain), each
-    by cuda_ms; prints the kernel's rate of the bytes it writes (K1) or
-    reads (K2)."""
-    p1, k1, k2, p2 = (cuda_ms(fn) for fn in (plain, kernel, kernel, plain))
+    by cuda_ms (the plain version over ``plain_reps`` windows); prints the
+    kernel's rate of the bytes it writes (Gram) or reads (VJP)."""
+    p1, k1, k2, p2 = (cuda_ms(fn, reps) for fn, reps in
+                      ((plain, plain_reps), (kernel, 7), (kernel, 7),
+                       (plain, plain_reps)))
     k, p = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"  time {label}: kernel {k:.4f} ms ({nbytes / k / 1e6:.0f} GB/s "
         f"{moved}), plain {p:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
@@ -493,48 +602,65 @@ def phase_kernels(dev, xs, x0s):
                 request_bound_ms=req_bound, request_bound_by=req_by)
 
 
-def phase_fitted_gram(dev, xs, free_np):
-    """K1 at the fitted config-4 parameters, whose lengthscales sit at the
-    1e-6 floor.  There the plain version's scale-then-subtract
-    (|x1/l - x2/l|, as the JAX package computes it) loses up to
-    eps * max|x|/l of each S, while K1 subtracts first.  Every entry where
-    the two disagree beyond rtol 1e-12 is recomputed on the host in
-    extended precision, and K1 must agree with that within rtol 1e-12."""
+def phase_fitted_gram(dev, xs, free_np, kind="matern32"):
+    """The kind's Gram kernel (K1 by default) at the fitted config-4
+    parameters, whose lengthscales sit at the 1e-6 floor.  There the plain
+    version's scale-then-subtract (|x1/l - x2/l|, as the JAX package
+    computes it; for the squared exponential the GEMM form
+    |u|^2 + |v|^2 - 2 u.v) loses up to eps * max|x|/l of each S (eps
+    |u|^2 of each squared distance), while the kernel subtracts first.
+    Every entry where the two disagree beyond rtol 1e-12 is recomputed on
+    the host in extended precision, and the kernel must agree with that
+    within rtol 1e-12."""
     import torch
     from lcgp_tpu_torch.models import params as P
     from lcgp_tpu_torch.convert import free_params_from_numpy
-    from lcgp_tpu_torch.ops.matern import (launch_matern32,
-                                           matern32_gram_plain)
+    f = family_of(kind)
+    label = f.label
     ls, amp, _, nug = P.constrain(free_params_from_numpy(*free_np, dev))
-    C_k = launch_matern32(xs, xs, ls, amp, nug, same=True)[0]
-    C_p = matern32_gram_plain(xs, xs, ls, amp, nug, same=True)
+    C_k = f.launch(xs, xs, ls, amp, nug, same=True)[0]
+    C_p, c0_p = f.plain(xs, xs, ls, amp, nug, same=True, want_c0=True)
     check(bool(torch.isfinite(C_k).all()), "fitted-params Gram not finite")
     check(torch.equal(C_k, C_k.mT), "fitted-params Gram not exactly symmetric")
+    if kind == "rbf":
+        dg = torch.diagonal(c0_p, dim1=-2, dim2=-1)
+        say(f"  the plain (GEMM-form) C0 on the same-point diagonal at the "
+            f"fitted params: min {float(dg.min())!r}, worst |C0 - 1| "
+            f"{float((dg - 1).abs().max()):.3e} (the kernel's is exactly 1)")
+    del c0_p
     err = (C_k - C_p).abs()
     outside = err > F64_ATOL + F64_RTOL * C_p.abs()
     k, i, j = (a.cpu().numpy() for a in outside.nonzero(as_tuple=True))
     say(f"  fitted config-4 params (min lengthscale {float(ls.min()):.3e}), "
-        f"f64 square C: K1 vs plain max_abs_err={float(err.max()):.3e} "
+        f"f64 square C: {label} vs plain max_abs_err={float(err.max()):.3e} "
         f"(max |C| {float(C_p.abs().max()):.3e}); {k.size} of {C_p.numel()} "
         f"entries outside rtol {F64_RTOL:g} atol {F64_ATOL:g}")
     if k.size:
         ld = np.longdouble
         X = xs.cpu().numpy().astype(ld)
         L, A, N = (t.cpu().numpy().astype(ld) for t in (ls, amp, nug))
-        S = np.abs(X[i] - X[j]) / L[k]
-        c0 = np.prod(1 + S, axis=1) * np.exp(-np.sum(S, axis=1))
-        ref = np.where(i == j, A[k], A[k] * ((1 - N[k] / (1 + N[k])) * c0))
-        got_k = C_k[k, i, j].cpu().numpy().astype(ld)
-        got_p = C_p[k, i, j].cpu().numpy().astype(ld)
-        rel_k = float(np.max(np.abs(got_k - ref) / np.abs(ref)))
-        rel_p = float(np.max(np.abs(got_p - ref) / np.abs(ref)))
+        rel_k = rel_p = 0.0
+        bad = 0
+        for c in range(0, k.size, 1 << 20):     # in chunks: memory
+            kc, ic, jc = k[c:c + (1 << 20)], i[c:c + (1 << 20)], j[c:c + (1 << 20)]
+            S = np.abs(X[ic] - X[jc]) / L[kc]
+            c0 = c0_extended(kind, S)
+            ref = np.where(ic == jc, A[kc],
+                           A[kc] * ((1 - N[kc] / (1 + N[kc])) * c0))
+            got_k = C_k[kc, ic, jc].cpu().numpy().astype(ld)
+            got_p = C_p[kc, ic, jc].cpu().numpy().astype(ld)
+            rel_k = max(rel_k, float(np.max(np.abs(got_k - ref)
+                                            / np.abs(ref))))
+            rel_p = max(rel_p, float(np.max(np.abs(got_p - ref)
+                                            / np.abs(ref))))
+            bad += int(np.sum(np.abs(got_k - ref)
+                              > F64_ATOL + F64_RTOL * np.abs(ref)))
         say(f"  at those entries, against extended precision "
-            f"({np.finfo(ld).eps:.1e} eps): K1 max_rel_err={rel_k:.3e}, "
+            f"({np.finfo(ld).eps:.1e} eps): {label} max_rel_err={rel_k:.3e}, "
             f"plain max_rel_err={rel_p:.3e}")
-        check(bool(np.all(np.abs(got_k - ref)
-                          <= F64_ATOL + F64_RTOL * np.abs(ref))),
-              "K1 at the fitted parameters differs from the extended-"
-              "precision reference beyond rtol 1e-12")
+        check(bad == 0, f"{label} at the fitted parameters differs from the "
+              f"extended-precision reference beyond rtol 1e-12 at {bad} "
+              "entries")
     del C_k, C_p, err, outside
     torch.cuda.empty_cache()
 
@@ -551,14 +677,16 @@ def loss_operands(m, free):
 
 
 def loss_factor(m, ls, amp, nug, D):
-    """The lower Cholesky factor of the loss's B = D C + (1 + jitter) I."""
+    """The lower Cholesky factor of the loss's B = D C + (1 + jitter) I,
+    with the model's kernel."""
     import torch
     from lcgp_tpu_torch.ops import linalg
     from lcgp_tpu_torch.ops.gram import gram_factor_target
     dv = torch.full((D.shape[0], m.n), 1.0 + m._jitter, dtype=D.dtype,
                     device=D.device)
     return linalg.cholesky(gram_factor_target(m.x, ls, amp, nug,
-                                              row_scale=D, diag_vec=dv))
+                                              row_scale=D, diag_vec=dv,
+                                              kind=m.kernel))
 
 
 def fused_operands(m, ls, amp, nug, D, a):
@@ -570,12 +698,13 @@ def fused_operands(m, ls, amp, nug, D, a):
     return linalg.chol_inverse(L), w
 
 
-def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256):
-    """Component k of the VJP, (glens (d,), gamp, gnug), recomputed on the
-    host in extended precision from the same f64 operands: cotangent
-    alpha_k M_k + beta w_k w_k^T, distances subtracted first.  Pairs whose
-    sum of S exceeds 1000 are left out: their terms are below
-    e^-1000 (1 + S)^d, far under any bound."""
+def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256,
+                 kind="matern32"):
+    """Component k of the kind's VJP, (glens (d,), gamp, gnug), recomputed
+    on the host in extended precision from the same f64 operands:
+    cotangent alpha_k M_k + beta w_k w_k^T, distances subtracted first.
+    Pairs whose decay's exponent exceeds 1000 are left out: their terms are
+    below e^-1000 times the factors, far under any bound."""
     ld = np.longdouble
     X64 = xs.cpu().numpy()
     X = X64.astype(ld)
@@ -587,16 +716,20 @@ def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256):
     n, d = X.shape
     g0, gl = ld(0), np.zeros(d, ld)
     for r0 in range(0, n, rows):
-        ssum = (np.abs(X64[r0:r0 + rows, None, :] - X64[None]) * inv64).sum(2)
-        i, j = np.nonzero(ssum < 1000.0)
+        S64 = np.abs(X64[r0:r0 + rows, None, :] - X64[None]) * inv64
+        if kind == "rbf":
+            expo = 0.5 * (S64 * S64).sum(2)
+        else:
+            expo = (SQRT5 if kind == "matern52" else 1.0) * S64.sum(2)
+        i, j = np.nonzero(expo < 1000.0)
         i = i + r0
         S = np.abs(X[i] - X[j]) * inv
         cb = a_k * Mk[i, j].astype(ld)
         if wk is not None:
             cb = cb + ld(beta) * wk[i] * wk[j]
-        cc = cb * np.prod(1 + S, axis=1) * np.exp(-S.sum(axis=1))
+        cc = cb * c0_extended(kind, S)
         g0 += cc.sum()
-        gl += (cc[:, None] * (S * S / (1 + S))).sum(axis=0)
+        gl += (cc[:, None] * lens_extended(kind, S)).sum(axis=0)
     diag = a_k * np.diagonal(Mk).astype(ld)
     if wk is not None:
         diag = diag + ld(beta) * wk * wk
@@ -607,17 +740,20 @@ def vjp_extended(xs, ls, amp, nug, k, M, alpha, beta, w, rows=256):
             A * (g1 - g0) / (1 + N) ** 2)
 
 
-def compare_vjp(name, got, ref, scale, extended=None, vjp_bound=VJP_BOUND):
-    """K2's (glens, gamp, gnug) against the plain version's: each error at
-    most ``vjp_bound`` times the magnitude of its sum's terms.  Where the two
-    differ by more, and ``extended(k)`` is given, component k is
-    recomputed in extended precision and K2 must be within the bound of
-    that.  Returns the max abs error against the best reference."""
+def compare_vjp(name, got, ref, scale, extended=None, vjp_bound=VJP_BOUND,
+                kernel="K2"):
+    """A VJP kernel's (K2 by default) (glens, gamp, gnug) against the plain
+    version's: each error at most ``vjp_bound`` times the magnitude of its
+    sum's terms.  Where the two differ by more, and ``extended(k)`` is
+    given, component k is recomputed in extended precision and the kernel
+    must be within the bound of that.  Returns the max abs error against
+    the best reference."""
     import torch
     worst = share = 0.0
     flagged = set()
     for part, g, r, s in zip(("glens", "gamp", "gnug"), got, ref, scale):
-        check(bool(torch.isfinite(g).all()), f"{name}: non-finite K2 {part}")
+        check(bool(torch.isfinite(g).all()),
+              f"{name}: non-finite {kernel} {part}")
         out = (g.double() - r.double()).abs() > vjp_bound * s
         if extended is None:
             check(not bool(out.any()), f"{name}: {int(out.sum())} entries of "
@@ -633,7 +769,7 @@ def compare_vjp(name, got, ref, scale, extended=None, vjp_bound=VJP_BOUND):
             share = max(share, float((err / s[keep].clamp_min(1e-300)).max()))
     say(f"  {name}: max_abs_err={worst:.3e}, max err/magnitude={share:.3e} "
         f"(bound {vjp_bound:g}) over the {int(keep.sum())} components where "
-        f"K2 and plain agree; max |glens| {float(ref[0].abs().max()):.3e}, "
+        f"{kernel} and plain agree; max |glens| {float(ref[0].abs().max()):.3e}, "
         f"max |gamp| {float(ref[1].abs().max()):.3e}")
     if flagged:
         kshare = pshare = 0.0
@@ -648,10 +784,10 @@ def compare_vjp(name, got, ref, scale, extended=None, vjp_bound=VJP_BOUND):
                 kshare = max(kshare, float(np.max(kerr / sk)))
                 pshare = max(pshare, float(np.max(perr / sk)))
                 check(bool(np.all(kerr <= vjp_bound * sk)),
-                      f"{name}: K2 differs from the extended-precision sums "
+                      f"{name}: {kernel} differs from the extended-precision sums "
                       f"of component {k} beyond {vjp_bound:g} x magnitude")
         say(f"  {name}: components {sorted(flagged)} differ from plain; "
-            f"against extended precision there, K2 err/magnitude="
+            f"against extended precision there, {kernel} err/magnitude="
             f"{kshare:.3e}, plain err/magnitude={pshare:.3e}")
     return worst
 
@@ -920,12 +1056,13 @@ def phase_oracle(dev):
     check(torch.cuda.is_available(), "lost the card")
 
 
-def launches_of(fn):
-    """(K1, K2) launches of one call of fn."""
-    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
-    k1, k2 = matern32_gram.launches, matern32_gram_vjp.launches
+def launches_of(fn, kind="matern32"):
+    """(Gram, VJP) launches of the kind's kernels (K1, K2 by default) in
+    one call of fn."""
+    f = family_of(kind)
+    k1, k2 = f.gram.launches, f.vjp.launches
     fn()
-    return matern32_gram.launches - k1, matern32_gram_vjp.launches - k2
+    return f.gram.launches - k1, f.vjp.launches - k2
 
 
 def phase_main(dev, x, y, xte, ytrue, free_np):
@@ -1011,22 +1148,21 @@ def phase_main(dev, x, y, xte, ytrue, free_np):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside: the loss runs the plain versions of K1 and K2 on the same
-    CUDA tensors, for the reference gradient."""
+    """Inside: the loss runs the plain versions of its kernel's Gram and
+    VJP kernels (K1 and K2 for Matern 3/2) on the same CUDA tensors, for
+    the reference gradient."""
     from lcgp_tpu_torch.models import likelihood as lik
     from lcgp_tpu_torch.ops import linalg
-    from lcgp_tpu_torch.ops.matern import (matern32_gram_plain,
-                                           matern32_gram_vjp_fused_plain)
 
     def factor_target(x, ls, amp, nug, *, row_scale, diag_vec, kind,
                       compute_dtype=None):
         check(compute_dtype is None, "plain_kernels is for precision 'high'")
-        C = matern32_gram_plain(x, x, ls, amp, nug, same=True)
+        C = family_of(kind).plain(x, x, ls, amp, nug, same=True)
         return linalg.add_diag(row_scale[:, None, None] * C, diag_vec)
 
     def vjp_fused(x, ls, amp, nug, *, M, alpha, beta, w, kind):
-        return matern32_gram_vjp_fused_plain(x, ls, amp, nug, M=M,
-                                             alpha=alpha, beta=beta, w=w)
+        return family_of(kind).fused_plain(x, ls, amp, nug, M=M, alpha=alpha,
+                                          beta=beta, w=w)
     saved = lik.gram_factor_target, lik.gram_vjp_fused
     lik.gram_factor_target, lik.gram_vjp_fused = factor_target, vjp_fused
     try:
@@ -1541,15 +1677,16 @@ def phase_rep_train(dev, n=4096, p=1000):
     return (k1_fit, k2_fit), k1_serve, per_call
 
 
-def f32_counts():
-    """(K1, K2) launches of their f32 instantiations so far."""
-    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
-    return matern32_gram.launches_f32, matern32_gram_vjp.launches_f32
+def f32_counts(kind="matern32"):
+    """(Gram, VJP) launches of the kind's f32 instantiations so far (K1, K2
+    by default)."""
+    f = family_of(kind)
+    return f.gram.launches_f32, f.vjp.launches_f32
 
 
-def reset_counts():
-    from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
-    for fn in (matern32_gram, matern32_gram_vjp):
+def reset_counts(kind="matern32"):
+    f = family_of(kind)
+    for fn in (f.gram, f.vjp):
         fn.launches = fn.launches_f32 = 0
 
 
@@ -1929,12 +2066,515 @@ def phase_precision(dev, x, y, xte, ytrue, free_np, rmse_f64):
     return f32_main, per_call
 
 
+def registers_of(registers, kernel, policy, dtype=None):
+    """ptxas's registers of one kernel template's instantiations for one
+    policy (and dtype, 'double' or 'float')."""
+    return {k: v for k, v in registers.items()
+            if k.startswith(kernel + "<") and k.endswith(f", {policy}>")
+            and (dtype is None or k.startswith(f"{kernel}<{dtype}"))}
+
+
+def kind_record(kind, vjp, f32, errs, times, bounds, library_ms, shape):
+    """A row of the kernels JSON line for phase 10's kernels."""
+    name = f"{kind}_gram" + ("_vjp" if vjp else "")
+    return dict(name=name + ("_f32" if f32 else ""), route="cuda",
+                source=f"lcgp_tpu_torch/csrc/{name}.cu",
+                replaces=REPLACES[kind][int(vjp)], max_abs_err=max(errs),
+                ms=times[0], plain_ms=times[1], bound_ms=bounds[0],
+                bound_by=bounds[1], library_ms=library_ms, shape=shape)
+
+
+def gemm_form_gram(x, ls, amp, nug, row_scale, diag_vec):
+    """The squared-exponential factor target by the GEMM form, with the
+    fewest PyTorch calls: one baddbmm for |u|^2 + |v|^2 - 2 u.v, then the
+    clamp, exp and epilogue in place.  What the JAX package runs, timed
+    beside K4 as its library yardstick; the port never calls it."""
+    import torch
+    u = x[None] / ls[:, None, :]                               # (q, n, d)
+    sq = (u * u).sum(-1)
+    B = torch.baddbmm(sq[:, :, None] + sq[:, None, :], u, u.mT, alpha=-2.0)
+    B.clamp_(min=0.0).mul_(-0.5).exp_()
+    eta = nug / (1.0 + nug)
+    B.mul_((row_scale * amp * (1.0 - eta))[:, None, None])
+    B.diagonal(dim1=-2, dim2=-1).add_(
+        (row_scale * amp * eta)[:, None] + diag_vec)
+    return B
+
+
+def phase_kind_kernels(dev, kind, x, y, xte):
+    """Phase 10, part 1: the kind's Gram kernel (K3 or K4) and its VJP
+    against their plain versions on the card at config 4, f64 and f32,
+    timed in turns with their bounds.  The Gram: square with the loss's
+    epilogue (and C0) and with the rep epilogue, exactly symmetric; the
+    request shape (20, 64, 4096); one ragged shape.  The VJP: the fused
+    cotangent at a real B^-1 and w (two launches bit for bit equal), a
+    random non-symmetric cotangent, and f32 at the 'fast' operating point.
+    Returns the four kernel records (Gram, VJP, Gram f32, VJP f32)."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops._build import build
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+    from lcgp_tpu_torch.ops.launch import fused_cotangent
+    lib = build().lib
+    fn = family_of(kind)
+    label = fn.label
+    gram_ops, vjp_ops = OPS_PER_ENTRY[kind]
+    f64, f32 = torch.float64, torch.float32
+    m = LCGP(y, x, q=20, kernel=kind, device=dev)
+    xs, q, n, d = m.x, int(m.q), m.n, m.d
+    x0s = m._standardize_x0(xte)
+    rng = np.random.default_rng(12)
+    ls, amp, nug = moderate_params(rng, q, d, dev, f64)
+    D = m._data.diag_D
+    dv = torch.full((q, n), 1.0 + m._jitter, dtype=f64, device=dev)
+    errs, errs32, verrs, verrs32 = [], [], [], []
+
+    def cast(dt, *ts):
+        return [t.to(dt).contiguous() for t in ts]
+
+    def k_sq(dt=f64, want_c0=False):
+        return fn.launch(*cast(dt, xs, xs, ls, amp, nug), same=True,
+                         want_c0=want_c0, row_scale=D.to(dt),
+                         diag_vec=dv.to(dt))
+
+    def p_sq(dt=f64):
+        xx, l_, a_, g_, D_, dv_ = cast(dt, xs, ls, amp, nug, D, dv)
+        C, c0 = fn.plain(xx, xx, l_, a_, g_, same=True, want_c0=True)
+        return linalg.add_diag(D_[:, None, None] * C, dv_), c0
+
+    (B_k, c0_k), (B_p, c0_p) = k_sq(f64, True), p_sq()
+    torch.cuda.synchronize()
+    errs.append(compare(f"{label} f64 square, the loss's epilogue (row scale "
+                        f"D, diagonal 1 + jitter; q={q}, n={n}, d={d}) B",
+                        B_k, B_p, F64_RTOL, F64_ATOL))
+    errs.append(compare(f"{label} f64 square C0", c0_k, c0_p, F64_RTOL,
+                        F64_ATOL))
+    check(bool((torch.diagonal(c0_k, dim1=-2, dim2=-1) == 1.0).all()),
+          f"{label}'s C0 diagonal is not exactly 1")
+    check(torch.equal(B_k, B_k.mT) and torch.equal(c0_k, c0_k.mT),
+          f"{label}'s same-point B or C0 is not exactly symmetric")
+    say(f"  {label} f64 square B and C0 exactly symmetric, C0 diagonal "
+        "exactly 1: True")
+    del B_k, c0_k, c0_p
+    B32 = k_sq(f32)[0]
+    torch.cuda.synchronize()
+    errs32.append(compare(f"{label} f32 square, the loss's epilogue, vs f64 "
+                          "plain", B32, B_p, F32_RTOL, F32_ATOL))
+    check(torch.equal(B32, B32.mT), f"{label} f32 B is not exactly symmetric")
+    del B32, B_p
+    # the rep path's factor target: row scale 1, diagonal 1/(D_k r_i)
+    r = torch.as_tensor(rng.integers(1, 11, n), dtype=f64, device=dev)
+    rep_dv = (1.0 / (D[:, None] * r[None, :])).contiguous()
+    A_k = fn.launch(xs, xs, ls, amp, nug, same=True,
+                    row_scale=torch.ones_like(D), diag_vec=rep_dv)[0]
+    A_p = linalg.add_diag(fn.plain(xs, xs, ls, amp, nug, same=True), rep_dv)
+    torch.cuda.synchronize()
+    errs.append(compare(f"{label} f64 square, the rep epilogue (row scale 1, "
+                        f"diagonal 1/(D r), r 1-10)", A_k, A_p, F64_RTOL,
+                        F64_ATOL))
+    check(torch.equal(A_k, A_k.mT), f"{label}'s rep factor target is not "
+          "exactly symmetric")
+    say(f"  {label} f64 square, rep epilogue, exactly symmetric: True")
+    del A_k, A_p
+    torch.cuda.empty_cache()
+    # the request's cross-covariance, f64 and f32, and a ragged shape
+    x64 = x0s[:64].contiguous()
+    R_p = fn.plain(x64, xs, ls, amp, nug, same=False)
+    errs.append(compare(f"{label} f64 rectangular, one request (q={q}, "
+                        f"n1=64, n2={n})",
+                        fn.launch(x64, xs, ls, amp, nug, same=False)[0], R_p,
+                        F64_RTOL, F64_ATOL))
+    errs32.append(compare(f"{label} f32 rectangular, one request, vs f64 "
+                          "plain",
+                          fn.launch(*cast(f32, x64, xs, ls, amp, nug),
+                                    same=False)[0], R_p, F32_RTOL, F32_ATOL))
+    rr = np.random.default_rng(2)
+    xa = torch.as_tensor(rr.uniform(0, 1, (1000, 3)), dtype=f64, device=dev)
+    xb = torch.as_tensor(rr.uniform(0, 1, (37, 3)), dtype=f64, device=dev)
+    l3, a3, n3 = moderate_params(rr, 3, 3, dev, f64)
+    errs.append(compare(f"{label} f64 ragged (q=3, n1=1000, n2=37, d=3)",
+                        fn.launch(xa, xb, l3, a3, n3, same=False)[0],
+                        fn.plain(xa, xb, l3, a3, n3, same=False),
+                        F64_RTOL, F64_ATOL))
+
+    # times and bounds, the kernel through its C entry
+    stack = q * n * n * 8
+    inputs = (xs.numel() + ls.numel() + 3 * q + dv.numel()) * 8
+    times = time_pair(f"{label} f64 square+epilogue (loss, q={q} n={n})",
+                      raw_gram(lib, xs, xs, ls, amp, nug, True, D, dv,
+                               family=kind),
+                      lambda: p_sq(), stack, plain_reps=3)
+    bounds = say_bound(f"{label} square+epilogue", times[0], stack + inputs,
+                       q * entries(n, n, True) * gram_ops(d, True))
+    library_ms = None
+    if kind == "rbf":
+        library_ms = cuda_ms(lambda: gemm_form_gram(xs, ls, amp, nug, D, dv),
+                             reps=3)
+        say(f"  time the GEMM-form composition (baddbmm, in-place clamp, exp "
+            f"and epilogue; the JAX package's form, no single library call): "
+            f"{library_ms:.4f} ms")
+    req = time_pair(f"{label} f64 rectangular n1=64 (one request)",
+                    raw_gram(lib, x64, xs, ls, amp, nug, False, family=kind),
+                    lambda: fn.plain(x64, xs, ls, amp, nug, same=False),
+                    q * 64 * n * 8)
+    req_bounds = say_bound(
+        f"{label} request", req[0],
+        q * 64 * n * 8 + ((64 + n) * d + ls.numel() + 2 * q) * 8,
+        q * entries(64, n, False) * gram_ops(d, False))
+    xs32, ls32, amp32, nug32, D32, dv32 = cast(f32, xs, ls, amp, nug, D, dv)
+    times32 = time_pair(f"{label} f32 square+epilogue (q={q} n={n})",
+                        raw_gram(lib, xs32, xs32, ls32, amp32, nug32, True,
+                                 D32, dv32, family=kind),
+                        lambda: p_sq(f32), stack // 2, plain_reps=3)
+    bounds32 = say_bound(f"{label} f32 square+epilogue", times32[0],
+                         (stack + inputs) // 2,
+                         q * entries(n, n, True) * gram_ops(d, True),
+                         F32_INSTR_PER_S)
+    torch.cuda.empty_cache()
+
+    # the VJP at the loss gradient's operating point: B^-1 and w at the
+    # model's data-driven init
+    ls0, amp0, nug0, D0, a0 = loss_operands(m, m.free)
+    Binv, w = fused_operands(m, ls0, amp0, nug0, D0, a0)
+    alpha = 0.5 * D0
+
+    def k_fused():
+        return fn.launch_vjp(xs, xs, ls0, amp0, nug0, same=True, M=Binv,
+                             alpha=alpha, beta=-0.5, w=w)
+
+    def p_fused():
+        return fn.fused_plain(xs, ls0, amp0, nug0, M=Binv, alpha=alpha,
+                              beta=-0.5, w=w)
+    got, again, ref = k_fused(), k_fused(), p_fused()
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          f"{label} VJP fused: two launches on the same inputs differ")
+    say(f"  {label} VJP fused at the init: two launches give the same bits")
+    scale = fn.scale(xs, xs, ls0, amp0, nug0, same=True,
+                     cbar=fused_cotangent(Binv, alpha, -0.5, w))
+    verrs.append(compare_vjp(
+        f"{label} VJP fused f64 (q={q}, n={n}, d={d}), B^-1 and w at the "
+        f"init (min lengthscale {float(ls0.min()):.3e})", got, ref, scale,
+        lambda k: vjp_extended(xs, ls0, amp0, nug0, k, Binv, alpha, -0.5, w,
+                               kind=kind), kernel=label))
+    del got, again, ref, scale
+    torch.cuda.empty_cache()
+    vtimes = time_pair(f"{label} VJP fused f64 (loss gradient, q={q} n={n})",
+                       raw_vjp(lib, xs, ls0, amp0, nug0, Binv, alpha, -0.5, w,
+                               family=kind),
+                       p_fused, Binv.numel() * 8, "read", plain_reps=3)
+    vbounds = say_bound(
+        f"{label} VJP fused", vtimes[0],
+        (Binv.numel() + w.numel() + xs.numel() + 5 * q + ls.numel()
+         + q * (d + 2)) * 8,
+        q * entries(n, n, True) * vjp_ops(d))
+    del Binv
+    torch.cuda.empty_cache()
+    # a random non-symmetric cotangent pins the pairing of the triangles
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cbar = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
+    got = fn.launch_vjp(xs, xs, ls, amp, nug, same=True, M=cbar)
+    ref = fn.vjp_plain(xs, xs, ls, amp, nug, same=True, cbar=cbar)
+    scale = fn.scale(xs, xs, ls, amp, nug, same=True, cbar=cbar)
+    torch.cuda.synchronize()
+    verrs.append(compare_vjp(
+        f"{label} VJP generic f64, random non-symmetric cotangent, moderate "
+        "lengthscales", got, ref, scale,
+        lambda k: vjp_extended(xs, ls, amp, nug, k, cbar, None, 0.0, None,
+                               kind=kind), kernel=label))
+    del cbar, got, ref, scale
+    torch.cuda.empty_cache()
+    # f32 at the 'fast' operating point: B^-1 of the f32 factor and w in f32,
+    # against the f64 plain VJP at the same operands
+    L = linalg.cholesky(gram_factor_target(xs, ls0, amp0, nug0, row_scale=D0,
+                                           diag_vec=dv, compute_dtype=f32,
+                                           kind=kind))
+    w32 = linalg.cho_solve_vec(L, a0.to(f32)).contiguous()
+    M32 = linalg.chol_inverse(L)
+    del L
+    al32 = alpha.to(f32)
+    xs32, l032, a032, n032 = cast(f32, xs, ls0, amp0, nug0)
+    got = fn.launch_vjp(xs32, xs32, l032, a032, n032, same=True, M=M32,
+                        alpha=al32, beta=-0.5, w=w32)
+    ref = fn.fused_plain(xs, ls0, amp0, nug0, M=M32.double(),
+                         alpha=al32.double(), beta=-0.5, w=w32.double())
+    scale = fn.scale(xs, xs, ls0, amp0, nug0, same=True,
+                     cbar=fused_cotangent(M32.double(), al32.double(), -0.5,
+                                          w32.double()))
+    torch.cuda.synchronize()
+    verrs32.append(compare_vjp(
+        f"{label} VJP f32 fused at the 'fast' operating point vs f64 plain",
+        got, ref, scale, vjp_bound=VJP_BOUND_F32, kernel=label))
+    del got, ref, scale
+    torch.cuda.empty_cache()
+    vtimes32 = time_pair(
+        f"{label} VJP f32 fused ('fast' loss gradient, q={q} n={n})",
+        raw_vjp(lib, xs32, l032, a032, n032, M32, al32, -0.5, w32,
+                family=kind),
+        lambda: fn.fused_plain(xs32, l032, a032, n032, M=M32, alpha=al32,
+                               beta=-0.5, w=w32),
+        M32.numel() * 4, "read", plain_reps=3)
+    vbounds32 = say_bound(
+        f"{label} VJP f32 fused", vtimes32[0],
+        (M32.numel() + w32.numel() + xs.numel() + 5 * q + ls.numel()
+         + q * (d + 2)) * 4,
+        q * entries(n, n, True) * vjp_ops(d), F32_INSTR_PER_S)
+    del m, M32
+    torch.cuda.empty_cache()
+    sq = f"q={q} n={n} d={d}"
+    rec = kind_record(kind, False, False, errs, times, bounds, library_ms,
+                      f"square+epilogue f64 {sq}")
+    rec.update(request_ms=req[0], request_plain_ms=req[1],
+               request_bound_ms=req_bounds[0], request_bound_by=req_bounds[1])
+    return (rec,
+            kind_record(kind, True, False, verrs, vtimes, vbounds, None,
+                        f"fused loss cotangent f64 {sq}"),
+            kind_record(kind, False, True, errs32, times32, bounds32, None,
+                        f"square+epilogue f32 {sq}"),
+            kind_record(kind, True, True, verrs32, vtimes32, vbounds32, None,
+                        f"fused loss cotangent f32 {sq}"))
+
+
+def phase_kind_model(dev, kind, x, y, xte, ytrue):
+    """Phase 10, part 2: the model with ``kernel=kind`` at config 4, f64,
+    from its data-driven init: one loss+grad evaluation timed and checked
+    against the plain kernels' gradient and central differences,
+    ``fit(method='scipy', maxiter=KIND_MAXITER)`` with the Gram and VJP
+    kernels launched once each per evaluation, the aux, 20
+    ``predict(batch_size=64)`` requests and one ``return_fullcov`` request,
+    peak memory and the held-out RMSE.  Returns the (Gram, VJP) launches of
+    one loss+grad evaluation and a dict of timings."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    fn = family_of(kind)
+    label = fn.label
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m = LCGP(y, x, q=20, kernel=kind, device=dev)
+    loss_fn = m._loss_fn()
+    flat = Flattener(m.free)
+    vg = value_and_grad(loss_fn, flat)
+    z0 = flat.ravel(m.free).cpu().numpy()
+    t0 = time.perf_counter()
+    v0, g0 = vg(z0)
+    first = time.perf_counter() - t0
+    warm = [timed_s(lambda: vg(z0)) for _ in range(5)]
+    per_eval = launches_of(lambda: vg(z0), kind)
+    say(f"  {kind} loss+grad evaluation: first {first:.4f} s, warm median "
+        f"{statistics.median(warm):.4f} s of 5 ("
+        + ", ".join(f"{t:.4f}" for t in warm) + f"); ({label}, {label} VJP) "
+        f"launches {per_eval}")
+    check(per_eval == (1, 1), f"a {kind} loss+grad evaluation launched "
+          f"{per_eval}, expected (1, 1)")
+    check(np.isfinite(v0) and bool(np.isfinite(g0).all()),
+          f"{kind} loss+grad at the init not finite")
+    k1, k2 = fn.gram.launches, fn.vjp.launches
+    with plain_kernels():
+        vp, gp = vg(z0)
+    check((fn.gram.launches, fn.vjp.launches) == (k1, k2),
+          "the plain reference launched a kernel")
+    loss_rel = abs(v0 - vp) / abs(vp)
+    say(f"  loss {v0:.12e} vs plain kernels {vp:.12e}: rel {loss_rel:.3e}")
+    check(loss_rel <= 1e-10, f"{kind} loss differs from the plain kernels'")
+    start = 0
+    for name, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
+                          flat.sizes):
+        a, b = g0[start:start + size], gp[start:start + size]
+        start += size
+        err, top = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+        say(f"  gradient {name}: max_abs_err={err:.3e} vs the plain kernels "
+            f"(max |g| {top:.3e}, rel {err / top:.3e})")
+        check(err <= GRAD_RTOL * top, f"{kind} gradient {name} differs from "
+              f"the plain kernels' beyond {GRAD_RTOL:g} of its max |g|")
+    del vp, gp
+    torch.cuda.empty_cache()
+
+    def f(z):
+        with torch.no_grad():
+            return float(loss_fn(flat.unravel_host(z)))
+    directional_check(f"{kind} gradient vs central differences", f, z0, g0,
+                      ndir=2, rtol=1e-5, seed=13, h=1e-3)
+
+    l_init = float(m.loss())
+    k1, k2 = fn.gram.launches, fn.vjp.launches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit_s = timed_s(lambda: m.fit(method="scipy", maxiter=KIND_MAXITER))
+    res = m._fit_result
+    k1_fit, k2_fit = fn.gram.launches - k1, fn.vjp.launches - k2
+    say(f"  fit(method='scipy', maxiter={KIND_MAXITER}): stop_reason="
+        f"{res.stop_reason!r} nit={res.nit} nfev={res.nfev} in {fit_s:.3f} s "
+        f"({fit_s / res.nfev:.4f} s per evaluation); loss {l_init:.10g} -> "
+        f"{res.fun:.10g}; {label} launches {k1_fit}, {label} VJP {k2_fit}")
+    check((k1_fit, k2_fit) == (res.nfev, res.nfev), f"the {kind} fit "
+          f"launched {label} {k1_fit} and its VJP {k2_fit} times in "
+          f"{res.nfev} evaluations")
+    check(np.isfinite(res.fun) and res.fun < l_init,
+          f"the {kind} fit did not lower the loss")
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    aux_s = timed_s(m.compute_aux_predictive_quantities)
+    outs, req_s = [], []
+    for r in range(20):
+        s0 = 64 * (r % 4)
+        req_s.append(timed_s(lambda: outs.append(
+            m.predict(xte[s0:s0 + 64], batch_size=64))))
+    req_s.sort()
+    fc_s = timed_s(lambda: outs.append(m.predict(xte[:8],
+                                                 return_fullcov=True)))
+    fc = outs.pop()
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    ypred, ypredvar, yconfvar = (torch.cat([o[i] for o in outs[:4]], dim=1)
+                                 for i in range(3))
+    for name, a in (("ypred", ypred), ("ypredvar", ypredvar),
+                    ("yconfvar", yconfvar), ("fullcov", fc[3])):
+        check(bool(torch.isfinite(a).all()), f"{kind}: {name} not finite")
+    check(tuple(ypred.shape) == ytrue.shape, f"ypred {tuple(ypred.shape)}")
+    check(bool((ypredvar > 0).all()), f"{kind}: predvar not positive")
+    check(bool(torch.allclose(torch.diagonal(fc[3], dim1=-2, dim2=-1).T,
+                              fc[1], rtol=1e-10, atol=0)),
+          f"{kind}: diag(fullcov) != predvar")
+    rmse = float(np.sqrt(np.mean((ypred.cpu().numpy() - ytrue) ** 2)))
+    out = {"loss_grad_s": statistics.median(warm), "aux_s": aux_s,
+           "request_ms": statistics.median(req_s) * 1e3,
+           "request_p90_ms": req_s[int(0.9 * (len(req_s) - 1))] * 1e3,
+           "fullcov_s": fc_s, "fit_s_per_eval": fit_s / res.nfev,
+           "nfev": res.nfev, "train_peak_gb": train_peak,
+           "serve_peak_gb": serve_peak, "rmse": rmse}
+    say(f"  {kind} aux {aux_s:.4f} s; 20 predict(batch_size=64) requests: "
+        f"median {out['request_ms']:.2f} ms, p90 {out['request_p90_ms']:.2f} "
+        f"ms; predict(8 points, return_fullcov=True) {fc_s:.4f} s; peak "
+        f"{train_peak:.3f} GB over the fit, {serve_peak:.3f} GB serving "
+        "(model included); "
+        f"held-out RMSE after the {KIND_MAXITER}-iteration fit {rmse:.6f}")
+    del m, vg, outs, fc
+    torch.cuda.empty_cache()
+    return per_eval, out
+
+
+def phase_kind_precision(dev, kind, x, y):
+    """Phase 10, part 3: the f32 instantiations on a path, one 'fast'
+    loss+grad evaluation timed with its f32 launches, and one 'mixed' loss
+    at the init against 'high''s within rtol 1e-9.  Returns the f32
+    (Gram, VJP) launches of the 'fast' evaluation and its time."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    fm = LCGP(y, x, q=20, kernel=kind, precision="fast", device=dev)
+    flat = Flattener(fm.free)
+    vg = value_and_grad(fm._loss_fn(), flat)
+    z = flat.ravel(fm.free).cpu().numpy()
+    first = timed_s(lambda: vg(z))
+    warm = statistics.median(timed_s(lambda: vg(z)) for _ in range(5))
+    before = f32_counts(kind)
+    v, g = vg(z)
+    per_eval32 = tuple(b - a for a, b in zip(before, f32_counts(kind)))
+    say(f"  {kind} 'fast' loss+grad evaluation: first {first:.4f} s, warm "
+        f"median {warm:.4f} s of 5; f32 (Gram, VJP) launches {per_eval32}")
+    check(per_eval32 == (1, 1), f"a 'fast' {kind} loss+grad evaluation "
+          f"launched the f32 kernels {per_eval32} times, expected (1, 1)")
+    check(np.isfinite(v) and bool(np.isfinite(g).all()),
+          f"'fast' {kind} loss+grad not finite")
+    del fm, vg
+    hi = LCGP(y, x, q=20, kernel=kind, device=dev)
+    mx = LCGP(y, x, q=20, kernel=kind, precision="mixed", device=dev)
+    l_hi, l_mx = float(hi.loss()), float(mx.loss())
+    rel = abs(l_mx - l_hi) / abs(l_hi)
+    say(f"  {kind} loss at the init: 'mixed' {l_mx!r} ({mx._compute_dtype!r})"
+        f" vs 'high' {l_hi!r}: rel {rel:.3e} (bound 1e-9)")
+    check(rel <= 1e-9, f"the 'mixed' {kind} loss differs from 'high' beyond "
+          "1e-9")
+    del hi, mx
+    torch.cuda.empty_cache()
+    return per_eval32, warm
+
+
+def phase_kind_rep(dev, kind):
+    """Phase 10, part 4: the rep path with the kind at phase 4's size (200
+    unique sites, 1-5 replicates, p=20, q=4, d=3): the model on the card
+    against the same model on the CPU (the plain versions), the loss rtol
+    1e-9 and the predictions within 1e-7 of each output's largest entry."""
+    from lcgp_tpu_torch import LCGP
+    x, y, x0 = rep_problem(10, 200, 3, 20, 30, 5)
+    rng = np.random.default_rng(40)
+    params = dict(lLmb=rng.uniform(0.2, 1.5, (4, 3)),
+                  lLmb0=rng.uniform(0.5, 3.0, 4),
+                  lnugGPs=rng.uniform(1e-6, 1e-3, 4))
+    ms = []
+    for where in (dev, "cpu"):
+        m = LCGP(y, x, q=4, kernel=kind, submethod="rep", device=where)
+        m.set_params(**params)
+        ms.append(m)
+    gpu, cpu = ms
+    lg, lc = float(gpu.loss()), float(cpu.loss())
+    rel = abs(lg - lc) / abs(lc)
+    say(f"  {kind} rep (n_unique={gpu.n} of N={x.shape[0]} rows): loss "
+        f"{lg!r} vs the CPU's {lc!r}: rel {rel:.3e}")
+    check(rel <= 1e-9, f"the {kind} rep loss differs from the CPU's")
+    for name, a, b in zip(("ypred", "ypredvar", "yconfvar"), gpu.predict(x0),
+                          cpu.predict(x0)):
+        compare_normwise(f"{kind} rep {name} vs the CPU run", a.cpu(), b,
+                         1e-7)
+
+
+def phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers):
+    """Phase 10: Matern 5/2 (K3) and the squared exponential (K4) at config
+    4.  For each kind: its kernels against their plain versions and timed
+    (part 1), the Gram at the fitted config-4 lengthscales against extended
+    precision, then the main path with the kind's launch counts set to 0
+    just before it and read just after: the f64 model (part 2), the f32
+    instantiations on a path (part 3) and the rep path (part 4).  Returns
+    the kernel records."""
+    records = []
+    for kind in REPLACES:
+        fn = family_of(kind)
+        label = fn.label
+        say(f"  == kernel={kind!r}: {label} and its VJP against their plain "
+            "versions")
+        recs = phase_kind_kernels(dev, kind, x, y, xte)
+        phase_fitted_gram(dev, xs, free_np, kind)
+        say(f"  == kernel={kind!r}: the main path (f64 model at config 4, "
+            "'fast' and 'mixed', the rep path)")
+        reset_counts(kind)
+        per_eval, timings = phase_kind_model(dev, kind, x, y, xte, ytrue)
+        per_eval32, fast_s = phase_kind_precision(dev, kind, x, y)
+        phase_kind_rep(dev, kind)
+        main = (fn.gram.launches, fn.vjp.launches)
+        main32 = f32_counts(kind)
+        say(f"  {kind} main path launches: {label} {main[0]} (f32 "
+            f"{main32[0]}), {label} VJP {main[1]} (f32 {main32[1]})")
+        check(min(main + main32) > 0, f"a {kind} kernel did not launch on "
+              f"phase 10's main path: {main}, f32 {main32}")
+        timings["fast_loss_grad_s"] = fast_s
+        say(f"  {kind} timings JSON: {json.dumps(timings)}")
+        for rec, i, dt in zip(recs, (0, 1, 0, 1),
+                              ("double", "double", "float", "float")):
+            rec["launches"] = (main32 if dt == "float" else main)[i]
+            rec["launches_per_eval"] = (per_eval32 if dt == "float"
+                                        else per_eval)[i]
+            rec["registers"] = registers_of(
+                registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
+                fn.policy, dt)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        recs[0]["model"] = timings
+        records.extend(recs)
+    return records
+
+
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
-    own build code into its own build directory and bound as this one's:
-    the C entry points keep their signatures from one version to the
-    next."""
+    own build code into its own build directory, with K1's and K2's entry
+    points bound as this one's (they keep their signatures from one version
+    to the next; an older checkout has no K3 or K4)."""
+    import ctypes
     from lcgp_tpu_torch.ops import _build
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from lcgp_tpu_torch.ops import _build; "
@@ -1943,13 +2583,22 @@ def other_library(root):
                          capture_output=True, text=True, timeout=900)
     check(out.returncode == 0,
           f"building the kernels of {root} failed:\n{out.stderr[-4000:]}")
-    return _build.KernelLibrary(Path(out.stdout.split()[-1]), 0.0, "").lib
+    lib = ctypes.CDLL(out.stdout.split()[-1])
+    for kind, argtypes in (("gram", _build.GRAM_ARGTYPES),
+                           ("gram_vjp", _build.VJP_ARGTYPES)):
+        for dt in ("f64", "f32"):
+            fn = getattr(lib, f"lcgp_matern32_{kind}_{dt}")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    fn = lib.lcgp_matern32_gram_vjp_scratch
+    fn.argtypes, fn.restype = _build.SCRATCH_ARGTYPES, ctypes.c_longlong
+    return lib
 
 
 def phase_against(dev, xs, x0s, root):
     """K1 and K2 of this checkout against another checkout's, at the main
-    path's shapes and f64, in turns (other, this, this, other).  Returns
-    {kernel: {"this": ms, "other": ms}}."""
+    path's shapes, f64 and f32, in turns (other, this, this, other), and
+    their outputs on the same inputs compared bit for bit.  Returns
+    {kernel: {"this": ms, "other": ms, "same_bits": bool}}."""
     import torch
     from lcgp_tpu_torch.ops._build import build
     libs = {"this": build().lib, "other": other_library(root)}
@@ -1963,6 +2612,8 @@ def phase_against(dev, xs, x0s, root):
     M = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
     w = torch.randn((q, n), generator=gen, dtype=f64, device=dev)
     x64 = x0s[:64].contiguous()
+    f32 = [t.float().contiguous() for t in (xs, ls, amp, nug, rs, dv, M, w)]
+    xs32, ls32, amp32, nug32, rs32, dv32, M32, w32 = f32
     cases = {
         f"K1 square+epilogue (q={q}, n={n})":
             lambda lib: raw_gram(lib, xs, xs, ls, amp, nug, True, rs, dv),
@@ -1970,15 +2621,27 @@ def phase_against(dev, xs, x0s, root):
             lambda lib: raw_gram(lib, x64, xs, ls, amp, nug, False),
         f"K2 fused (q={q}, n={n})":
             lambda lib: raw_vjp(lib, xs, ls, amp, nug, M, 0.5 * rs, -0.5, w),
+        f"K1 f32 square+epilogue (q={q}, n={n})":
+            lambda lib: raw_gram(lib, xs32, xs32, ls32, amp32, nug32, True,
+                                 rs32, dv32),
+        f"K2 f32 fused (q={q}, n={n})":
+            lambda lib: raw_vjp(lib, xs32, ls32, amp32, nug32, M32,
+                                0.5 * rs32, -0.5, w32),
     }
     result = {}
     for label, make in cases.items():
         fns = {k: make(lib) for k, lib in libs.items()}
         o1, t1, t2, o2 = (cuda_ms(fns[k])
                           for k in ("other", "this", "this", "other"))
-        result[label] = {"this": (t1 + t2) / 2, "other": (o1 + o2) / 2}
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(fns["this"].outputs, fns["other"].outputs))
+        result[label] = {"this": (t1 + t2) / 2, "other": (o1 + o2) / 2,
+                         "same_bits": same}
         say(f"  {label}: this {(t1 + t2) / 2:.4f} ms ({t1:.4f}/{t2:.4f}), "
-            f"{root}: {(o1 + o2) / 2:.4f} ms ({o1:.4f}/{o2:.4f})")
+            f"{root}: {(o1 + o2) / 2:.4f} ms ({o1:.4f}/{o2:.4f}); outputs "
+            f"the same bits: {same}")
+        check(same, f"{label}: this checkout's output differs from {root}'s")
         del fns
         torch.cuda.empty_cache()
     return result
@@ -1990,7 +2653,9 @@ def main() -> int:
         description="Smoke run of lcgp_tpu_torch on one CUDA card.")
     ap.add_argument("--against", metavar="DIR",
                     help="only time K1 and K2 of this checkout against "
-                         "those of the checkout at DIR, in turns")
+                         "those of the checkout at DIR, in turns, and "
+                         "compare their outputs bit for bit (K1 and K2 "
+                         "only: an older checkout has no K3 or K4)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2009,7 +2674,7 @@ def main() -> int:
     from lcgp_tpu_torch.models import transforms as tx
 
     lib = _build.build()
-    say(f"[2] K1 and K2 built in {lib.build_seconds:.2f} s -> {lib.path}")
+    say(f"[2] K1-K4 built in {lib.build_seconds:.2f} s -> {lib.path}")
     registers = ptxas_report(lib.log)
 
     x, y, xte, ytrue = config4()
@@ -2028,8 +2693,9 @@ def main() -> int:
 
     say("[3] K1 against the plain version on the card")
     record = phase_kernels(dev, xs.contiguous(), x0s)
-    phase_fitted_gram(dev, xs.contiguous(), free_np)
-    del xt, xs, x0s
+    xs = xs.contiguous()
+    phase_fitted_gram(dev, xs, free_np)
+    del xt, x0s
     say("[3] K2 against the plain version on the card")
     record_vjp = phase_vjp(dev, x, y, free_np)
 
@@ -2067,10 +2733,9 @@ def main() -> int:
         rec["launches"] = f32_main[i]
         rec["launches_per_eval"] = calls_f32["fast_loss_grad"][i]
         rec["launches_per_call"] = {k: v[i] for k, v in calls_f32.items()}
-        rec["registers"] = {
-            k: v for k, v in registers.items()
-            if k.startswith(("matern32_gram_kernel", "matern32_vjp_")[i])
-            and "<float" in k}
+        rec["registers"] = registers_of(
+            registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
+            "Matern32", "float")
 
     say("  launches per call (K1, K2): " + ", ".join(
         f"{k} {v}" for k, v in per_call.items()))
@@ -2080,17 +2745,24 @@ def main() -> int:
     # the main paths: serving (phases 5, 7 and 8) runs K1, the fits
     # (phases 6 and 8) K1 and K2
     k1_main = k1_serve + k1_fit + k1_rep_serve5 + k1_rep_fit + k1_rep_serve
-    for rec, i, launches, prefix in (
-            (record, 0, k1_main, "matern32_gram_kernel"),
-            (record_vjp, 1, k2_fit + k2_rep_fit, "matern32_vjp_")):
+    for rec, i, launches in ((record, 0, k1_main),
+                             (record_vjp, 1, k2_fit + k2_rep_fit)):
         rec["launches"] = launches
         rec["launches_per_eval"] = per_call["loss_grad"][i]
         rec["launches_per_call"] = {k: v[i] for k, v in per_call.items()}
-        rec["registers"] = {k: v for k, v in registers.items()
-                            if k.startswith(prefix)}
+        rec["registers"] = registers_of(
+            registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
+            "Matern32")
+    records = [record, record_vjp, rec_k1_f32, rec_k2_f32]
+    for rec in records:
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
 
-    say(json.dumps({"kernels": [record, record_vjp, rec_k1_f32,
-                                rec_k2_f32]}))
+    say("[10] Matern 5/2 (K3) and the squared exponential (K4) at config 4 "
+        "(n=4096, p=1000, q=20, d=8): the kernels against their plain "
+        "versions, f64 and f32, then the model path with each kernel")
+    records += phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers)
+
+    say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

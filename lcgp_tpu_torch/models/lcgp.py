@@ -4,10 +4,10 @@ Same constructor surface, parameter accessors, ``loss``/``fit``/``predict``,
 aux accessors, npz ``save``/``load`` format and fit checkpoints as
 ``lcgp_tpu.LCGP``, for ``submethod='full'`` and ``'rep'``, every
 ``precision`` (``'high'`` float64, ``'mixed'`` refined f32 factors,
-``'fast'`` float32, ``'auto'``) and ``kernel='matern32'``.  NumPy or
-tensors in, tensors on ``device`` out (float64, or float32 latents under
-``'fast'``).  What is not ported yet raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item.
+``'fast'`` float32, ``'auto'``) and every ``kernel`` (``'matern32'``,
+``'matern52'``, ``'rbf'``).  NumPy or tensors in, tensors on ``device`` out
+(float64, or float32 latents under ``'fast'``).  What is not ported yet
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -67,10 +67,6 @@ class LCGP:
             raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
         if kernel not in ('matern32', 'matern52', 'rbf'):
             raise ValueError("kernel must be 'matern32', 'matern52', or 'rbf'")
-        if kernel != 'matern32':
-            raise NotImplementedError(
-                f"kernel={kernel!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 13)")
         if inducing is not None:
             raise NotImplementedError(
                 "inducing= (FITC) is not ported yet (ROADMAP.md Queue 1 "

@@ -19,6 +19,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from .launch import FAMILIES
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "lcgp_tpu_torch"
@@ -29,33 +31,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (x1, x2, inv_l, amp, nug, row_scale, diag_vec, same, q, n1, n2, d,
 #  out, c0_out, stream) -> cudaError_t
-_GRAM_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+GRAM_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 # (x1, x2, inv_l, amp, nug, M, w, alpha, beta, same, q, n1, n2, d,
 #  partials, glens, gamp, gnug, stream) -> cudaError_t
-_VJP_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I,
-                 _I, _I, _P, _P, _P, _P, _P]
+VJP_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I,
+                _I, _I, _P, _P, _P, _P, _P]
+# (q, n1, n2, d) -> f64 scratch entries for any family's VJP
+SCRATCH_ARGTYPES = [_I, _I, _I, _I]
 
 
 class KernelLibrary:
-    """The loaded shared library plus how it was built."""
+    """The loaded shared library plus how it was built, with the entry
+    points of every kernel family of ``ops/launch.py`` bound:
+    ``lcgp_<family>_gram_{f64,f32}``, ``lcgp_<family>_gram_vjp_{f64,f32}``
+    and the shared ``lcgp_matern32_gram_vjp_scratch``."""
 
     def __init__(self, path: Path, build_seconds: float, log: str):
         self.path = path
         self.build_seconds = build_seconds
         self.log = log
         self.lib = ctypes.CDLL(str(path))
-        for name in ("lcgp_matern32_gram_f64", "lcgp_matern32_gram_f32"):
-            fn = getattr(self.lib, name)
-            fn.argtypes = _GRAM_ARGTYPES
-            fn.restype = ctypes.c_int
-        for name in ("lcgp_matern32_gram_vjp_f64",
-                     "lcgp_matern32_gram_vjp_f32"):
-            fn = getattr(self.lib, name)
-            fn.argtypes = _VJP_ARGTYPES
-            fn.restype = ctypes.c_int
-        # (q, n1, n2, d) -> f64 scratch entries for the VJP's partial sums
+        for family in FAMILIES:
+            for kind, argtypes in (("gram", GRAM_ARGTYPES),
+                                   ("gram_vjp", VJP_ARGTYPES)):
+                for dt in ("f64", "f32"):
+                    fn = getattr(self.lib, f"lcgp_{family}_{kind}_{dt}")
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
         fn = self.lib.lcgp_matern32_gram_vjp_scratch
-        fn.argtypes = [_I, _I, _I, _I]
+        fn.argtypes = SCRATCH_ARGTYPES
         fn.restype = ctypes.c_longlong
 
 

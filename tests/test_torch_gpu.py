@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card (marker ``gpu``).
 
-K1 (``lcgp_tpu_torch/csrc/matern32_gram.cu``) and K2
-(``lcgp_tpu_torch/csrc/matern32_gram_vjp.cu``) are CUDA kernels with no CPU
+K1 (``lcgp_tpu_torch/csrc/matern32_gram.cu``), K2
+(``lcgp_tpu_torch/csrc/matern32_gram_vjp.cu``), K3 (``matern52_gram.cu`` and
+its VJP) and K4 (``rbf_gram.cu`` and its VJP) are CUDA kernels with no CPU
 mode, so these skip without a card.  This file imports neither JAX nor
 ``tests/conftest.py``'s JAX setup, so it runs on a machine that has only
 PyTorch:
@@ -14,6 +15,8 @@ import torch
 
 import lcgp_tpu_torch
 from lcgp_tpu_torch.ops import matern as TM
+from lcgp_tpu_torch.ops import matern52 as TM5
+from lcgp_tpu_torch.ops import rbf as TR
 
 F64_TOL = dict(rtol=1e-12, atol=1e-14)
 
@@ -23,8 +26,8 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA card: K1 and K2 are CUDA kernels with '
-                    'no CPU mode')
+        pytest.skip('needs a CUDA card: K1-K4 are CUDA kernels with no '
+                    'CPU mode')
     return torch.device('cuda', 0)
 
 
@@ -567,3 +570,173 @@ def test_lcgp_precision_on_card_matches_cpu(dev, precision):
         else:
             err = float((a.cpu() - b).abs().max())
             assert err <= f32_tol * float(b.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# K3 (kernel='matern52') and K4 (kernel='rbf'): the Gram kernel and its VJP
+# of each kind against their plain versions, and the model on the card
+# ---------------------------------------------------------------------------
+
+KINDS = {'matern52': TM5, 'rbf': TR}
+
+
+def _kind(kind):
+    """(launch, plain Gram, VJP launch, plain VJP, plain fused VJP, VJP
+    scale, Gram counter, VJP counter) of a kind."""
+    m = KINDS[kind]
+    return (getattr(m, f'launch_{kind}'), getattr(m, f'{kind}_gram_plain'),
+            getattr(m, f'launch_{kind}_vjp'),
+            getattr(m, f'{kind}_gram_vjp_plain'),
+            getattr(m, f'{kind}_gram_vjp_fused_plain'),
+            getattr(m, f'{kind}_gram_vjp_scale'), getattr(m, f'{kind}_gram'),
+            getattr(m, f'{kind}_gram_vjp'))
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('d', [1, 3, 8, 17])
+@pytest.mark.parametrize('same', [True, False])
+def test_kind_kernel_matches_plain(dev, kind, d, same):
+    """Same-point with the factor target's epilogue (exactly symmetric, C0
+    exactly 1 on the diagonal) and cross at a ragged shape, f64."""
+    launch, plain = _kind(kind)[:2]
+    x1, x2, ls, amp, nug = _inputs(dev, 90 + d, 300, 77, d, 5)
+    rs = dv = None
+    if same:
+        x2 = x1
+        rs = torch.linspace(0.5, 3.0, 5, dtype=torch.float64, device=dev)
+        dv = torch.linspace(1.0, 2.0, 5 * 300, dtype=torch.float64,
+                            device=dev).reshape(5, 300)
+    got, c0 = launch(x1, x2, ls, amp, nug, same=same, want_c0=True,
+                     row_scale=rs, diag_vec=dv)
+    C, c0_ref = plain(x1, x2, ls, amp, nug, same=same, want_c0=True)
+    ref = rs[:, None, None] * C + torch.diag_embed(dv) if same else C
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **F64_TOL)
+    torch.testing.assert_close(c0, c0_ref, **F64_TOL)
+    if same:
+        assert torch.equal(got, got.mT) and torch.equal(c0, c0.mT)
+        assert bool((torch.diagonal(c0, dim1=-2, dim2=-1) == 1.0).all())
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('n', [1, 17, 1000, 4097])
+def test_kind_kernel_same_point_is_symmetric_at_ragged_n(dev, kind, n):
+    launch, plain = _kind(kind)[:2]
+    x, _, ls, amp, nug = _inputs(dev, 95 + n, n, 1, 8, 2)
+    got = launch(x, x, ls, amp, nug, same=True)[0]
+    ref = plain(x, x, ls, amp, nug, same=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.mT)
+    assert torch.equal(torch.diagonal(got, dim1=-2, dim2=-1),
+                       amp[:, None].expand(2, n))
+    torch.testing.assert_close(got, ref, **F64_TOL)
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('same', [True, False])
+def test_kind_kernel_f32_matches_f64_plain(dev, kind, same):
+    launch, plain, *_, gram, _ = _kind(kind)
+    x1, x2, ls, amp, nug = _inputs(dev, 4, 257, 64, 8, 5)
+    if same:
+        x2 = x1
+    before = (gram.launches, gram.launches_f32)
+    got = gram(*(t.float() for t in (x1, x2, ls, amp, nug)), same=same)
+    assert (gram.launches, gram.launches_f32) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = plain(x1, x2, ls, amp, nug, same=same)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-6)
+    if same:
+        assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same,d', [(True, 8), (False, 8), (True, 1),
+                                    (True, 3), (False, 17)])
+def test_kind_vjp_kernel_generic_matches_plain(dev, kind, dtype, same, d):
+    """Any cotangent, a non-symmetric one when same (which pins the pairing
+    of the two triangles), against the f64 plain VJP."""
+    *_, launch_vjp, vjp_plain, _, scale_fn, _, _ = _kind(kind)
+    x1, x2, ls, amp, nug = _inputs(dev, 100 + d, 200, 77, d, 5)
+    if same:
+        x2 = x1
+    cbar = torch.as_tensor(np.random.default_rng(d).standard_normal(
+        (5, 200, x2.shape[0])), device=dev)
+    got = launch_vjp(*(t.to(dtype) for t in (x1, x2, ls, amp, nug)),
+                     same=same, M=cbar.to(dtype).contiguous())
+    ref = vjp_plain(x1, x2, ls, amp, nug, same=same, cbar=cbar)
+    scale = scale_fn(x1, x2, ls, amp, nug, same=same, cbar=cbar)
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype for g in got)
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [17, 300])
+def test_kind_vjp_kernel_fused_is_deterministic(dev, kind, dtype, n):
+    """The fused cotangent alpha M + beta w w^T, never formed: against the
+    f64 plain VJP, and two launches give the same bits."""
+    (*_, launch_vjp, _, fused_plain, scale_fn, _, vjp) = _kind(kind)
+    x, _, ls, amp, nug = _inputs(dev, 110 + n, n, 1, 8, 4)
+    rng = np.random.default_rng(110 + n)
+    M = _sym(rng, 4, n, dev, torch.float64)
+    w = torch.as_tensor(rng.standard_normal((4, n)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, 4), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x, ls, amp, nug, M, alpha, w)]
+    before = vjp.launches
+    runs = [launch_vjp(cast[0], cast[0], *cast[1:4], same=True, M=cast[4],
+                       alpha=cast[5], beta=-0.5, w=cast[6]) for _ in range(2)]
+    assert vjp.launches == before + 2
+    ref = fused_plain(x, ls, amp, nug, M=M, alpha=alpha, beta=-0.5, w=w)
+    scale = scale_fn(x, x, ls, amp, nug, same=True,
+                     cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+    _assert_vjp_close(runs[0], ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('kind', list(KINDS))
+@pytest.mark.parametrize('submethod', ['full', 'rep'])
+def test_lcgp_kind_on_card_matches_cpu(dev, kind, submethod):
+    """A matern52 or rbf model on the card against the same model on the
+    CPU: loss rtol 1e-10, gradient within 1e-9 of each leaf's max |g|,
+    predictions (with the full covariance on the full path) rtol 1e-9,
+    and one Gram and one VJP launch per loss+grad evaluation."""
+    from lcgp_tpu_torch.models import likelihood as TLik
+    from lcgp_tpu_torch.models import params as TP
+    *_, gram, vjp = _kind(kind)
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0, 1, (150, 3))
+    if submethod == 'rep':
+        x = np.repeat(x, rng.integers(1, 4, 150), axis=0)
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]) * x[:, 2],
+                   x[:, 0] * x[:, 2], np.sin(x.sum(1))])
+    y = y + 0.05 * rng.standard_normal(y.shape)
+    x0 = rng.uniform(0, 1, (20, 3))
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=3, kernel=kind, submethod=submethod,
+                              device=dev)
+    cpu = lcgp_tpu_torch.LCGP(y, x, q=3, kernel=kind, submethod=submethod,
+                              device='cpu')
+    fn = TLik.neglpost_full if submethod == 'full' else TLik.neglpost_rep
+
+    def grad(m):
+        free = TP.FreeParams(*(t.clone().requires_grad_(True)
+                               for t in m.free))
+        v = fn(free, m._data, kernel=kind)
+        return v, torch.autograd.grad(v, free)
+    before = (gram.launches, vjp.launches)
+    vg, gg = grad(gpu)
+    assert (gram.launches, vjp.launches) == (before[0] + 1, before[1] + 1)
+    vc, gc = grad(cpu)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-10, atol=0)
+    for a, b in zip(gg, gc):
+        assert a.device.type == 'cuda'
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-9 * float(b.abs().max()), err
+    full = submethod == 'full'
+    for a, b in zip(gpu.predict(x0, return_fullcov=full),
+                    cpu.predict(x0, return_fullcov=full)):
+        assert a.device.type == 'cuda'
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)

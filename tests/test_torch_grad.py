@@ -191,11 +191,15 @@ def test_fused_vjp_matches_jax_cotangent_composition():
 
 
 @pytest.mark.parametrize('kind,err', [('matern32', None),
-                                      ('rbf', NotImplementedError),
-                                      ('matern52', NotImplementedError),
+                                      ('rbf', None),
+                                      ('matern52', None),
                                       ('nope', ValueError)])
 def test_gram_vjp_matches_jax(kind, err):
     from lcgp_tpu_torch.ops import gram as TG
+    from lcgp_tpu_torch.ops import matern52, rbf
+    scale_fn = {'matern32': TM.matern32_gram_vjp_scale,
+                'matern52': matern52.matern52_gram_vjp_scale,
+                'rbf': rbf.rbf_gram_vjp_scale}.get(kind)
     x1, x2, ls, amp, nug, cbar = _vjp_inputs(13, 30, 21, 2, 3)
     tx = [_t(a) for a in (x1, x2, ls, amp, nug)]
     if err is not None:
@@ -208,8 +212,7 @@ def test_gram_vjp_matches_jax(kind, err):
     got = TG.gram_vjp(*tx, same=False, cbar=_t(cbar), kind=kind)
     ref = JG.gram_vjp(x1, x2, ls, amp, nug, same=False,
                       cbar=jnp.asarray(cbar), kind=kind)
-    _assert_vjp_close(got, ref, TM.matern32_gram_vjp_scale(
-        *tx, same=False, cbar=_t(cbar)))
+    _assert_vjp_close(got, ref, scale_fn(*tx, same=False, cbar=_t(cbar)))
 
 
 @pytest.mark.parametrize('same', [True, False])

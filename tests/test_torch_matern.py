@@ -74,14 +74,6 @@ def test_gram_stack_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize('kind', ['matern52', 'rbf'])
-def test_unported_kinds_raise(kind):
-    x, _, ls, amp, nug = _inputs(3)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 13'):
-        TG.gram_stack(_t(x), _t(x), _t(ls), _t(amp), _t(nug), same=True,
-                      kind=kind)
-
-
 def test_diag_matches_jax():
     _, _, _, amp, _ = _inputs(4)
     x0 = np.zeros((9, 3))
@@ -196,17 +188,19 @@ def test_vjp_pairwise_triangle_sum_matches_jax(cotangent):
             f'{name}: max err/magnitude {np.max(err / s.numpy()):.3e}')
 
 
-@pytest.mark.parametrize('edited', ['matern32_common.cuh',
-                                    'matern32_gram.cu'])
+@pytest.mark.parametrize('edited', ['gram_common.cuh', 'gram_kernel.cuh',
+                                    'gram_vjp_kernel.cuh',
+                                    'matern32_gram.cu', 'rbf_gram_vjp.cu'])
 def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch,
                                                edited):
-    # K1 and K2 share device code through a header: editing it must give a
-    # new build directory, so the library is rebuilt
+    # every kernel is an instantiation of templates in shared headers:
+    # editing any source must give a new build directory, so the library
+    # is rebuilt
     import shutil
     from lcgp_tpu_torch.ops import _build
     csrc = tmp_path / 'csrc'
     shutil.copytree(_build.CSRC_DIR, csrc)
-    assert (csrc / 'matern32_common.cuh').exists()
+    assert (csrc / edited).exists()
     monkeypatch.setattr(_build, 'CSRC_DIR', csrc)
     before = _build._source_hash()
     with open(csrc / edited, 'a') as f:

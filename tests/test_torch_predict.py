@@ -293,9 +293,40 @@ def test_cpu_model_never_launches_the_kernel(pair):
     assert TM.matern32_gram.launches == before
 
 
+@pytest.mark.parametrize('kind', ['matern52', 'rbf'])
+def test_cpu_model_never_launches_the_kind_kernels(kind):
+    """On the CPU a matern52 or rbf model runs the plain versions: neither
+    K3/K4 nor its VJP counts a launch, in f64 or f32."""
+    from lcgp_tpu_torch.ops import matern52, rbf
+    mod = matern52 if kind == 'matern52' else rbf
+    counters = (getattr(mod, f'{kind}_gram'), getattr(mod, f'{kind}_gram_vjp'))
+    before = [(c.launches, c.launches_f32) for c in counters]
+    x, y, x0 = _problem(7, n=30, p=3)
+    for precision in ('high', 'fast'):
+        tm = lcgp_tpu_torch.LCGP(y, x, q=2, kernel=kind, precision=precision,
+                                 device='cpu')
+        tm.fit(method='scipy', maxiter=2)
+        tm.predict(x0, batch_size=8)
+    assert [(c.launches, c.launches_f32) for c in counters] == before
+
+
+@pytest.mark.parametrize('kind', ['rbf', 'matern52'])
+def test_kernel_kinds_are_ported(kind):
+    """kernel='matern52' and 'rbf' construct on both submethods and give
+    lcgp_tpu's loss (tests/test_torch_matern52_rbf.py holds the rest)."""
+    x, y, _ = _problem(5, n=20, p=3)
+    for submethod, xx, yy in (('full', x, y),
+                              ('rep', np.repeat(x, 2, axis=0),
+                               np.repeat(y, 2, axis=1))):
+        tm = lcgp_tpu_torch.LCGP(yy, xx, q=2, kernel=kind, device='cpu',
+                                 submethod=submethod)
+        jm = lcgp_tpu.LCGP(yy, xx, q=2, kernel=kind, submethod=submethod)
+        assert tm.kernel == jm.kernel == kind
+        tm.free = convert.free_params_from_numpy(*_free_np(jm), 'cpu')
+        _close(tm.loss(), jm.loss(), rtol=LOSS_RTOL)
+
+
 @pytest.mark.parametrize('kw,item', [
-    (dict(kernel='rbf'), 'item 13'),
-    (dict(kernel='matern52'), 'item 13'),
     (dict(inducing=5), 'item 15'),
 ])
 def test_unported_options_raise(kw, item):
