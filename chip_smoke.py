@@ -9,9 +9,10 @@ Phases, each printing its own lines:
 1. fail unless CUDA is available; print the card's name and power limit;
 2. build the hand-written CUDA kernels from the sources in this checkout,
    one nvcc per source: K1 (csrc/matern32_gram.cu) and K2
-   (csrc/matern32_gram_vjp.cu), K3 (csrc/matern52_gram.cu and its VJP) and
-   K4 (csrc/rbf_gram.cu and its VJP), every one an instantiation of
-   csrc/gram_kernel.cuh or csrc/gram_vjp_kernel.cuh; print the build time
+   (csrc/matern32_gram_vjp.cu), K3 (csrc/matern52_gram.cu and its VJP),
+   K4 (csrc/rbf_gram.cu and its VJP) and K5 (csrc/gram_vjp_x.cu), every one
+   an instantiation of csrc/gram_kernel.cuh, csrc/gram_vjp_kernel.cuh or
+   csrc/gram_vjp_x_kernel.cuh; print the build time
    and ptxas's registers, spills and shared memory per instantiation (a
    spill at MAXD <= 16 fails);
 3. hold K1 against its plain PyTorch version on the card at the main path's
@@ -81,7 +82,26 @@ Phases, each printing its own lines:
    once per evaluation, the aux, 20 requests, one ``return_fullcov``
    request, peak memory, RMSE), one 'fast' loss+grad evaluation on the f32
    instantiations, 'mixed' against 'high' at the init, and the rep path at
-   phase 4's size against the CPU.
+   phase 4's size against the CPU;
+11. the FITC inducing-point path (``inducing=``, ``n_chunk=``,
+   ``refine_inducing``) at benchmarks/run_configs.py's configs 6-8: K1 at
+   Knm's rectangular shape, K2 at a random cross cotangent and K5 (the
+   Gram VJP in the inducing points, csrc/gram_vjp_x.cu) of each family
+   against their plain versions at config 6's (4, 50000, 256), f64 and
+   f32, at a ragged tall shape too, timed with their bounds; then the main
+   path with every count set to 0: the loss gradient in (free, z) on the
+   card against the CPU at a cut of config 6 (n=2000, m=64) for each
+   family, dense and streamed; config 6 (n=50,000, m=256): the f64
+   loss+grad dense against streamed (n_chunk=8192) to machine precision
+   with their launches, one loss+grad in (free, z) per Matern 5/2 and SE,
+   f64 and 'fast', then the 'fast' model: fit(method='adam', steps=200),
+   500 held-out predictions against lcgp_tpu's recorded rmse, nrmse and
+   coverage (failing above twice its rmse), refine_inducing(steps=20)
+   with K5 launched and the loss not raised; config 7 (n=400,000, m=512,
+   un-chunked) and config 8 (n=2,000,000, m=512, n_chunk automatic:
+   32768, 62 blocks): construction, one timed loss+grad with its launches
+   and peak memory (config 8 under a quarter of the un-chunked panels'
+   4 q n m itemsize), the aux and a 500-point predict.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -280,9 +300,10 @@ def ptxas_report(log):
         if m:
             name = m.group(1)
             k = re.search(r"(gram_[a-z_]*kernel)I([df])(?:Li(\d+)E)?", name)
-            # the policy, a length-prefixed name in namespace lcgp
+            # the policy, a length-prefixed name in namespace lcgp (K5's
+            # finish kernel has none)
             p = re.search(r"N4lcgp(\d+)", name)
-            policy = name[p.end():p.end() + int(p.group(1))]
+            policy = name[p.end():p.end() + int(p.group(1))] if p else "any"
             cur = rows.setdefault(
                 f"{k.group(1)}<{'double' if k.group(2) == 'd' else 'float'}"
                 + (f", MAXD={k.group(3)}" if k.group(3) else "")
@@ -304,8 +325,9 @@ def ptxas_report(log):
         say(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes', 0)} bytes spilled, "
             f"{r.get('smem', 0)} bytes static smem")
-    check(len(rows) >= 54, f"ptxas reported {len(rows)} kernels, expected "
-          "54 (3 families x 2 dtypes x (4 MAXD x 2 + 1))")
+    check(len(rows) >= 80, f"ptxas reported {len(rows)} kernels, expected "
+          "80 (3 families x 2 dtypes x (4 MAXD x 3 + 1), and K5's finish "
+          "kernel in 2 dtypes)")
     spills = [n for n, r in rows.items()
               if r["maxd"] <= 16 and r.get("spill_bytes", 0)]
     check(not spills, f"spills at MAXD <= 16: {spills}")
@@ -367,18 +389,22 @@ def raw_gram(lib, x1, x2, ls, amp, nug, same, row_scale=None,
     return launch
 
 
-def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w, family="matern32"):
-    """The same for the family's VJP kernel (K2 by default; same-point,
-    x's dtype) at the cotangent alpha_k M_k + beta w_k w_k^T."""
+def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w, family="matern32",
+            x2=None):
+    """The same for the family's VJP kernel (K2 by default; x's dtype) at
+    the cotangent alpha_k M_k + beta w_k w_k^T of the same-point Gram, or,
+    with ``x2``, at the cross cotangent M of C(x, x2)."""
     import torch
     q, n, d = ls.shape[0], x.shape[0], x.shape[1]
+    n2 = n if x2 is None else x2.shape[0]
     inv = (1.0 / ls).contiguous()
     outs = [torch.empty(s, dtype=x.dtype, device=x.device)
             for s in ((q, d), (q,), (q,))]
-    part = torch.empty((lib.lcgp_matern32_gram_vjp_scratch(q, n, n, d),),
+    part = torch.empty((lib.lcgp_matern32_gram_vjp_scratch(q, n, n2, d),),
                        dtype=torch.float64, device=x.device)
-    args = (ptr(x), ptr(x), ptr(inv), ptr(amp), ptr(nug), ptr(M), ptr(w),
-            ptr(alpha), float(beta), 1, q, n, n, d, ptr(part),
+    args = (ptr(x), ptr(x if x2 is None else x2), ptr(inv), ptr(amp),
+            ptr(nug), ptr(M), ptr(w), ptr(alpha), float(beta),
+            int(x2 is None), q, n, n2, d, ptr(part),
             *(ptr(o) for o in outs),
             torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -387,8 +413,30 @@ def raw_vjp(lib, x, ls, amp, nug, M, alpha, beta, w, family="matern32"):
 
     def launch():
         check(fn(*args) == 0, f"{family} VJP launch failed")
-    launch.buffers = (x, ls, amp, nug, M, alpha, w, inv, outs, part)
+    launch.buffers = (x, x2, ls, amp, nug, M, alpha, w, inv, outs, part)
     launch.outputs = tuple(outs)
+    return launch
+
+
+def raw_vjp_x(lib, x1, x2, ls, amp, nug, M, family="matern32"):
+    """The same for K5, the family's VJP in the points of x2, at the
+    cotangent M (q, n1, n2)."""
+    import torch
+    q, n1, n2, d = ls.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]
+    inv = (1.0 / ls).contiguous()
+    gx = torch.empty((n2, d), dtype=x1.dtype, device=x1.device)
+    part = torch.empty((lib.lcgp_gram_vjp_x_scratch(n1, n2, d),),
+                       dtype=torch.float64, device=x1.device)
+    args = (ptr(x1), ptr(x2), ptr(inv), ptr(amp), ptr(nug), ptr(M), q, n1,
+            n2, d, ptr(part), ptr(gx),
+            torch.cuda.current_stream(x1.device).cuda_stream)
+    fn = getattr(lib, f"lcgp_{family}_gram_vjp_x_"
+                 + ("f64" if x1.dtype == torch.float64 else "f32"))
+
+    def launch():
+        check(fn(*args) == 0, f"{family} VJP-x launch failed")
+    launch.buffers = (x1, x2, ls, amp, nug, M, inv, gx, part)
+    launch.outputs = (gx,)
     return launch
 
 
@@ -945,7 +993,8 @@ def warm_timings(m, xte, reps: int = 5, requests: int = 20):
 
 
 def profile_device(label, fn, top):
-    """Device time by kernel over one call of fn (torch.profiler)."""
+    """Device time by kernel over one call of fn (torch.profiler); returns
+    the total device time in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -962,6 +1011,7 @@ def profile_device(label, fn, top):
     for e in events[:top]:
         say(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
+    return total
 
 
 def softclip_np(v, clip):
@@ -2568,6 +2618,530 @@ def phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the FITC inducing-point path at benchmarks/run_configs.py's
+# configs 6-8
+# ---------------------------------------------------------------------------
+
+# lcgp_tpu's recorded accuracy at config 6 (RESULTS.md, "Config 6": 200 Adam
+# steps at 'fast', 500 held-out points); accuracy only, no time
+CONFIG6_RECORDED = {"rmse": 0.067, "nrmse": 0.026, "coverage": 1.00}
+FITC_ADAM_STEPS = 200
+REFINE_STEPS = 20
+K5_SOURCE = "lcgp_tpu_torch/csrc/gram_vjp_x.cu"
+K5_REPLACES = ("none (jax.grad of the jnp Gram in its second operand): "
+               "lcgp_tpu/models/sparse.py:76 (_fitc_core's Gram stacks), "
+               "taken by lcgp_tpu/models/lcgp.py:930 (refine_inducing)")
+
+
+def fitc_config(idx):
+    """benchmarks/run_configs.py:config6/7/8 as they make their data:
+    (x, y, xte, ytrue, kwargs).  A copy, since that module's metrics import
+    lcgp_tpu."""
+    seed, n, m = {6: (11, 50_000, 256), 7: (13, 400_000, 512),
+                  8: (17, 2_000_000, 512)}[idx]
+    rng = np.random.default_rng(seed)
+    d, p, q = 2, 20, 4
+    x = rng.uniform(0, 1, (n + 500, d))
+    t = np.linspace(0, 1, p)[:, None]
+    f = (np.sin(2 * np.pi * (t + x[:, :1].T)) * x[:, 1:2].T
+         + np.cos(np.pi * t * x[:, 1:2].T))
+    if idx > 6:
+        f = f + 0.3 * np.sin(4 * np.pi * x[:, :1].T + np.pi * t)
+    y = f + 0.05 * rng.standard_normal(f.shape)
+    kwargs = dict(q=q, inducing=m)
+    if idx == 7:
+        kwargs["n_chunk"] = 0
+    return x[:n], y[:, :n], x[n:], f[:, n:], kwargs
+
+
+def k5_ops_per_entry(kind, d):
+    """K5's instructions per entry and component, as the function needs
+    them: the cotangent times amp (1 - eta) and the decay (2), and
+    Matern 3/2: S, product and sum (3d), exp (~16), per dimension the
+    prefix times the suffix, times S, times 1/l, the sign, the sum and the
+    suffix's factor (6d); Matern 5/2: S, factor, product and sum (5d),
+    sqrt5 times the sum and exp (~17), per dimension 1 + sqrt5 S, S times
+    it, the products, 1/l, sign, sum and the suffix's fma (8d; the kernel
+    also recomputes the factor for the suffix, 2d); SE: S and its fma into
+    the sum (2d), -1/2 times the sum and exp (~17), per dimension the
+    suffix times S, 1/l, sign and sum (4d)."""
+    return {"matern32": 9 * d + 18, "matern52": 13 * d + 19,
+            "rbf": 6 * d + 19}[kind]
+
+
+def fitc_counts():
+    """(Gram, VJP, K5) launches of every family, f64 and f32 apart:
+    {kind: ((gram, vjp, vjp_x) f64, (...) f32)}."""
+    out = {}
+    for kind in OPS_PER_ENTRY:
+        f = family_of(kind)
+        c = [(fn.launches - fn.launches_f32, fn.launches_f32)
+             for fn in (f.gram, f.vjp, f.vjp_x)]
+        out[kind] = (tuple(a for a, _ in c), tuple(b for _, b in c))
+    return out
+
+
+def reset_all_counts():
+    for kind in OPS_PER_ENTRY:
+        f = family_of(kind)
+        for fn in (f.gram, f.vjp, f.vjp_x):
+            fn.launches = fn.launches_f32 = 0
+
+
+def count_delta(before, after):
+    return {k: tuple(tuple(a - b for a, b in zip(x, y))
+                     for x, y in zip(after[k], before[k])) for k in after}
+
+
+def phase_fitc_kernels(dev, xs, z):
+    """Phase 11, part 1: K1 rectangular (Knm), K2 at an arbitrary cross
+    cotangent and K5 of each family against their plain versions on the
+    card at config 6's shapes (4, n, m), f64 and f32, timed in turns with
+    their bounds, and once at a ragged tall shape.  Returns the kernel
+    records (their launches come from the main path)."""
+    import torch
+    from lcgp_tpu_torch.ops._build import build
+    lib = build().lib
+    rng = np.random.default_rng(31)
+    q, n, d, m = 4, xs.shape[0], xs.shape[1], z.shape[0]
+    records = []
+    k1 = family_of("matern32")
+    for dt in (torch.float64, torch.float32):
+        tag, size = ("f64", 8) if dt == torch.float64 else ("f32", 4)
+        rtol, atol = ((F64_RTOL, F64_ATOL) if dt == torch.float64
+                      else (F32_RTOL, F32_ATOL))
+        vjp_bound = VJP_BOUND if dt == torch.float64 else VJP_BOUND_F32
+        rate = F64_INSTR_PER_S if dt == torch.float64 else F32_INSTR_PER_S
+        ls, amp, nug = moderate_params(rng, q, d, dev, torch.float64)
+        ls = ls * 0.1                      # config 6's scale: l ~ 1/16
+        x1, x2, ls_, amp_, nug_ = (t.to(dt).contiguous()
+                                   for t in (xs, z, ls, amp, nug))
+        gen = torch.Generator(device=dev).manual_seed(32)
+        M = torch.randn((q, n, m), generator=gen, dtype=dt, device=dev)
+        ins = (x1.numel() + x2.numel() + ls_.numel() + 2 * q) * size
+
+        # K1: Knm
+        def p_gram():
+            return k1.plain(x1, x2, ls_, amp_, nug_, same=False)
+        err_g = [compare(f"K1 {tag} Knm (q={q}, n={n}, m={m}, d={d}) vs "
+                         "plain", k1.launch(x1, x2, ls_, amp_, nug_,
+                                            same=False)[0], p_gram(),
+                         rtol, atol)]
+        xr, zr = x1[:12345], x2[:200]
+        err_g.append(compare(f"K1 {tag} ragged (q={q}, n=12345, m=200) vs "
+                             "plain", k1.launch(xr, zr, ls_, amp_, nug_,
+                                                same=False)[0],
+                             k1.plain(xr, zr, ls_, amp_, nug_, same=False),
+                             rtol, atol))
+        t_g = time_pair(f"K1 {tag} Knm (q={q} n={n} m={m})",
+                        raw_gram(lib, x1, x2, ls_, amp_, nug_, False), p_gram,
+                        q * n * m * size, plain_reps=3)
+        b_g = say_bound(f"K1 {tag} Knm", t_g[0], q * n * m * size + ins,
+                        q * n * m * k1_ops_per_entry(d, False), rate)
+        records.append(dict(
+            name=f"matern32_gram_fitc{'' if tag == 'f64' else '_f32'}",
+            route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
+            max_abs_err=max(err_g), ms=t_g[0], plain_ms=t_g[1],
+            bound_ms=b_g[0], bound_by=b_g[1], library_ms=None,
+            shape=f"Knm {tag} q={q} n={n} m={m} d={d}"))
+
+        # K2 at a random cross cotangent
+        args64 = [t.double() for t in (x1, x2, ls_, amp_, nug_)]
+
+        def p_vjp():
+            return k1.vjp_plain(x1, x2, ls_, amp_, nug_, same=False, cbar=M)
+        err_v = []
+        for a1, a2, Mc, lab in ((x1, x2, M, f"n={n}, m={m}"),
+                                (xr, zr, M[:, :12345, :200].contiguous(),
+                                 "ragged n=12345, m=200")):
+            got = k1.launch_vjp(a1, a2, ls_, amp_, nug_, same=False, M=Mc)
+            b64 = [t.double() for t in (a1, a2, ls_, amp_, nug_)]
+            ref = k1.vjp_plain(*b64, same=False, cbar=Mc.double())
+            scale = k1.scale(*b64, same=False, cbar=Mc.double())
+            torch.cuda.synchronize()
+            err_v.append(compare_vjp(f"K2 {tag} at a random cotangent "
+                                     f"(q={q}, {lab}) vs plain", got, ref,
+                                     scale, vjp_bound=vjp_bound))
+        t_v = time_pair(f"K2 {tag} random cotangent (q={q} n={n} m={m})",
+                        raw_vjp(lib, x1, ls_, amp_, nug_, M, None, 0.0, None,
+                                x2=x2), p_vjp, M.numel() * size, "read",
+                        plain_reps=3)
+        b_v = say_bound(f"K2 {tag} random cotangent", t_v[0],
+                        M.numel() * size + ins + q * (d + 2) * size,
+                        q * n * m * (k2_ops_per_entry(d) - 2), rate)
+        records.append(dict(
+            name=f"matern32_gram_vjp_fitc{'' if tag == 'f64' else '_f32'}",
+            route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
+            max_abs_err=max(err_v), ms=t_v[0], plain_ms=t_v[1],
+            bound_ms=b_v[0], bound_by=b_v[1], library_ms=None,
+            shape=f"random cross cotangent {tag} q={q} n={n} m={m} d={d}"))
+
+        # K5 of each family
+        for kind in OPS_PER_ENTRY:
+            fam = family_of(kind)
+            err_x = []
+            for a1, a2, Mc, lab in ((x1, x2, M, f"n={n}, m={m}"),
+                                    (xr, zr, M[:, :12345, :200].contiguous(),
+                                     "ragged n=12345, m=200")):
+                got = fam.launch_vjp_x(a1, a2, ls_, amp_, nug_, M=Mc)
+                again = fam.launch_vjp_x(a1, a2, ls_, amp_, nug_, M=Mc)
+                b64 = [t.double() for t in (a1, a2, ls_, amp_, nug_)]
+                ref = fam.vjp_x_plain(*b64, M=Mc.double())
+                scale = fam.scale_x(*b64, M=Mc.double())
+                torch.cuda.synchronize()
+                err = (got.double() - ref).abs()
+                share = float((err / scale.clamp_min(1e-300)).max())
+                say(f"  K5 {kind} {tag} (q={q}, {lab}) vs plain: "
+                    f"max_abs_err={float(err.max()):.3e}, max err/magnitude="
+                    f"{share:.3e} (bound {vjp_bound:g}); two launches the "
+                    f"same bits: {torch.equal(got, again)}")
+                check(bool(torch.isfinite(got).all()), f"K5 {kind} not finite")
+                check(bool((err <= vjp_bound * scale).all()),
+                      f"K5 {kind} {tag} outside {vjp_bound:g} x magnitude")
+                check(torch.equal(got, again), f"K5 {kind} {tag} is not "
+                      "deterministic")
+                err_x.append(float(err.max()))
+
+            def p_x(fam=fam):
+                return fam.vjp_x_plain(x1, x2, ls_, amp_, nug_, M=M)
+            t_x = time_pair(f"K5 {kind} {tag} (q={q} n={n} m={m})",
+                            raw_vjp_x(lib, x1, x2, ls_, amp_, nug_, M, kind),
+                            p_x, M.numel() * size, "read", plain_reps=3)
+            b_x = say_bound(f"K5 {kind} {tag}", t_x[0],
+                            M.numel() * size + ins + m * d * size,
+                            q * n * m * k5_ops_per_entry(kind, d), rate)
+            records.append(dict(
+                name=f"{kind}_gram_vjp_x{'' if tag == 'f64' else '_f32'}",
+                route="cuda", source=K5_SOURCE, replaces=K5_REPLACES,
+                max_abs_err=max(err_x), ms=t_x[0], plain_ms=t_x[1],
+                bound_ms=b_x[0], bound_by=b_x[1], library_ms=None,
+                shape=f"(q, n, m) cotangent {tag} q={q} n={n} m={m} d={d}"))
+        del M
+        torch.cuda.empty_cache()
+    return records
+
+
+def fitc_loss_grad(m, with_z=True):
+    """The model's FITC loss and flat gradient in (free, z), or in free
+    alone, as refine_inducing and the fits take them: (value, gradient,
+    flattener)."""
+    import torch
+    from lcgp_tpu_torch.fit._flat import Flattener
+    tree = {"free": m.free, "z": m._z} if with_z else m.free
+    flat = Flattener(tree)
+    leaf = flat.ravel(tree).clone().requires_grad_(True)
+    t = flat.unravel(leaf)
+    fitc = m._fitc_loss(m._compute_dtype)
+    v = fitc(t["free"], t["z"]) if with_z else fitc(t, m._z)
+    (g,) = torch.autograd.grad(v, leaf)
+    return v.detach(), g, flat
+
+
+def kmm_cond(m):
+    """The largest condition number of Kmm + KMM_JITTER amp over the
+    components, at the model's parameters and z, computed on the CPU."""
+    import torch
+    from lcgp_tpu_torch.models import params as P
+    from lcgp_tpu_torch.models.sparse import KMM_JITTER
+    from lcgp_tpu_torch.ops.gram import gram_stack
+    with torch.no_grad():
+        ls, amp, _, nug = (t.cpu() for t in P.constrain(m.free))
+        K = gram_stack(m._z.cpu(), m._z.cpu(), ls, amp, nug, same=False,
+                       kind=m.kernel)
+        eye = torch.eye(K.shape[-1], dtype=K.dtype)
+        return float(torch.linalg.cond(
+            K + KMM_JITTER * amp[:, None, None] * eye).max())
+
+
+def z_grad_rtol(m):
+    """The z gradient's tolerance: GRAD_RTOL, or 10 eps cond(Kmm + jitter)
+    of its max |g| where that is larger.  The z gradient is a small
+    residue of terms through Kmm's factor, and its rounding error grows
+    with Kmm's conditioning: the squared exponential's Kmm at config 6's
+    init reaches cond 2.8e9, and there two reduction orders on one CPU
+    (dense and streamed) already part by 1.1e-7 of its max |g|."""
+    return max(GRAD_RTOL, 10 * float(np.finfo(np.float64).eps) * kmm_cond(m))
+
+
+def compare_grads(name, got, ref, flat, rtol, z_rtol=None):
+    """Each leaf of a flat gradient within rtol (the z leaf within z_rtol,
+    rtol when None) of the leaf's max |g|."""
+    start = 0
+    leaf_names = (["lLmb", "lLmb0", "lsigma2s", "lnugGPs", "z"])
+    for nm, size in zip(leaf_names, flat.sizes):
+        a = got[start:start + size].double().cpu()
+        b = ref[start:start + size].double().cpu()
+        start += size
+        tol = z_rtol if nm == "z" and z_rtol is not None else rtol
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        say(f"  {name} {nm}: max_abs_err={err:.3e} (max |g| {top:.3e}, rel "
+            f"{err / max(top, 1e-300):.3e}, bound {tol:.3g})")
+        check(err <= tol * top, f"{name}: {nm} differs beyond {tol:g} of "
+              "its max |g|")
+
+
+def phase_fitc_cut(dev, x, y):
+    """Phase 11, part 2: the FITC loss and its gradient in (free, z) on the
+    card against the same port on the CPU, at a small cut of config 6
+    (n=2000, m=64), f64, dense and streamed, for each kernel family."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    for kind in OPS_PER_ENTRY:
+        for n_chunk in (0, 512):
+            ms = [LCGP(y[:, :2000], x[:2000], q=4, inducing=64,
+                       n_chunk=n_chunk, kernel=kind, device=d_)
+                  for d_ in (dev, "cpu")]
+            (vg, gg, flat), (vc, gc, _) = (fitc_loss_grad(m) for m in ms)
+            rel = abs(float(vg) - float(vc)) / abs(float(vc))
+            say(f"  {kind} n_chunk={n_chunk}: loss card {float(vg):.12e} vs "
+                f"CPU {float(vc):.12e}, rel {rel:.3e}")
+            check(rel <= 1e-10, f"{kind} FITC loss on the card differs from "
+                  "the CPU's")
+            z_rtol = z_grad_rtol(ms[1])
+            say(f"  {kind}: cond(Kmm + jitter) {kmm_cond(ms[1]):.3e}, z "
+                f"gradient bound {z_rtol:.3g}")
+            compare_grads(f"{kind} n_chunk={n_chunk} gradient card vs CPU",
+                          gg, gc, flat, GRAD_RTOL, z_rtol)
+
+
+def fitc_metrics(m, xte, ytrue):
+    """rmse, nrmse, 95% coverage and mean width of the model's predictions
+    at the held-out points, by the port's evaluation module."""
+    from lcgp_tpu_torch import evaluation
+    ypred, ypredvar, _ = (t.cpu().numpy() for t in m.predict(xte))
+    cover, width = evaluation.intervalstats(ytrue, ypred, ypredvar)
+    return {"rmse": evaluation.rmse(ytrue, ypred),
+            "nrmse": evaluation.normalized_rmse(ytrue, ypred),
+            "coverage": cover, "width": width}
+
+
+def phase_fitc_config6(dev):
+    """Phase 11, part 3: config 6 (n=50,000, d=2, p=20, q=4, m=256).  The
+    f64 loss+grad dense against streamed (n_chunk=8192) to machine
+    precision with their launches; one f64 loss+grad in (free, z) per
+    kernel family; then the 'fast' model as lcgp_tpu ran it: one timed
+    loss+grad, fit(method='adam', steps=200), 500 held-out predictions
+    against lcgp_tpu's recorded accuracy, and refine_inducing(steps=20),
+    which must launch K5 and not raise the loss.  Returns timings."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    x, y, xte, ytrue, kw = fitc_config(6)
+    out = {}
+    res = {}
+    for n_chunk in (0, 8192):
+        m = LCGP(y, x, n_chunk=n_chunk, device=dev, **kw)
+        before = fitc_counts()
+        res[n_chunk] = fitc_loss_grad(m)
+        torch.cuda.synchronize()
+        delta = count_delta(before, fitc_counts())["matern32"][0]
+        nb = -(-m.n // n_chunk) if n_chunk else 0
+        expect = (2, 2, 3) if not n_chunk else (1 + 2 * nb, 1 + nb, 2 + nb)
+        say(f"  config 6 f64 n_chunk={n_chunk or None} ({nb} blocks): loss "
+            f"{float(res[n_chunk][0]):.12e}; (K1, K2, K5) launches {delta}, "
+            f"expected {expect}")
+        check(delta == expect, f"config 6 n_chunk={n_chunk} launched {delta}")
+    (v0, g0, flat), (v1, g1, _) = res[0], res[8192]
+    rel = abs(float(v1) - float(v0)) / abs(float(v0))
+    say(f"  streamed vs dense loss: rel {rel:.3e}; cond(Kmm + jitter) "
+        f"{kmm_cond(m):.3e}")
+    check(rel <= 1e-12, "streamed FITC loss differs from the dense one")
+    # one reduction order against another: the z gradient to its
+    # conditioning's precision, as on the card against the CPU
+    compare_grads("config 6 streamed vs dense gradient", g1, g0, flat,
+                  GRAD_RTOL, z_grad_rtol(m))
+    del res, m
+    # Kmm is f64 in every precision; under 'fast' Knm is f32
+    expect = {"high": ((2, 2, 3), (0, 0, 0)), "fast": ((1, 1, 2), (1, 1, 1))}
+    for kind in ("matern52", "rbf"):
+        for precision in ("high", "fast"):
+            m = LCGP(y, x, kernel=kind, precision=precision, device=dev,
+                     **kw)
+            before = fitc_counts()
+            t0 = time.perf_counter()
+            v, g, _ = fitc_loss_grad(m)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            delta = count_delta(before, fitc_counts())[kind]
+            say(f"  config 6 kernel={kind!r} precision={precision!r}: "
+                f"loss+grad in (free, z) {t:.4f} s (first call), loss "
+                f"{float(v):.10e}; (Gram, VJP, K5) launches f64 {delta[0]}, "
+                f"f32 {delta[1]}")
+            check(delta == expect[precision],
+                  f"{kind} {precision} loss+grad launched {delta}")
+            check(bool(torch.isfinite(g).all()), f"{kind} gradient not finite")
+            del m
+
+    t0 = time.perf_counter()
+    m = LCGP(y, x, precision="fast", device=dev, **kw)
+    torch.cuda.synchronize()
+    out["construct_s"] = time.perf_counter() - t0
+    fitc_loss_grad(m, with_z=False)
+    before = fitc_counts()
+    warm = [timed_s(lambda: fitc_loss_grad(m, with_z=False))
+            for _ in range(3)]
+    delta = count_delta(before, fitc_counts())["matern32"]
+    out["loss_grad_s"] = statistics.median(warm)
+    out["loss_grad_device_ms"] = profile_device(
+        "one config-6 'fast' loss+grad", lambda: fitc_loss_grad(
+            m, with_z=False), 8)
+    say(f"  config 6 'fast': construct {out['construct_s']:.3f} s; loss+grad "
+        f"warm median {out['loss_grad_s']:.4f} s of 3 (device busy "
+        f"{out['loss_grad_device_ms'] / 1e3:.4f} s: idle share "
+        f"{1 - out['loss_grad_device_ms'] / 1e3 / out['loss_grad_s']:.1%}); "
+        f"(K1, K2, K5) launches over the 3: f64 {delta[0]} (Kmm), f32 "
+        f"{delta[1]} (Knm)")
+    check(delta == ((3, 3, 0), (3, 3, 0)), f"'fast' loss+grad launched "
+          f"{delta}")
+    torch.cuda.reset_peak_memory_stats()
+    out["fit_s"] = timed_s(lambda: m.fit(method="adam",
+                                         steps=FITC_ADAM_STEPS))
+    out["fit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    met = fitc_metrics(m, xte, ytrue)
+    out.update(met)
+    say(f"  fit(method='adam', steps={FITC_ADAM_STEPS}) {out['fit_s']:.3f} s "
+        f"({out['fit_s'] / FITC_ADAM_STEPS:.4f} s per step), peak "
+        f"{out['fit_peak_gb']:.3f} GB, loss {m._fit_result.fun:.8g}; 500 "
+        f"held-out points: rmse {met['rmse']:.4f} (lcgp_tpu recorded "
+        f"{CONFIG6_RECORDED['rmse']}), nrmse {met['nrmse']:.4f} "
+        f"({CONFIG6_RECORDED['nrmse']}), coverage {met['coverage']:.3f} "
+        f"({CONFIG6_RECORDED['coverage']}), width {met['width']:.3f}")
+    check(met["rmse"] <= 2 * CONFIG6_RECORDED["rmse"],
+          f"config 6 rmse {met['rmse']:.4f} above twice lcgp_tpu's")
+    stats = m._fitc_clamp_stats
+    say(f"  variance clamp statistics of that predict: {stats}")
+    l0 = float(m.loss())
+    k5 = family_of("matern32").vjp_x.launches
+    out["refine_s"] = timed_s(lambda: m.refine_inducing(steps=REFINE_STEPS))
+    k5 = family_of("matern32").vjp_x.launches - k5
+    l1 = float(m.loss())
+    met = fitc_metrics(m, xte, ytrue)
+    say(f"  refine_inducing(steps={REFINE_STEPS}) {out['refine_s']:.3f} s: "
+        f"loss {l0:.10g} -> {l1:.10g}; K5 launches {k5}; rmse "
+        f"{met['rmse']:.4f}, coverage {met['coverage']:.3f}")
+    check(k5 == 3 * REFINE_STEPS, f"refine_inducing launched K5 {k5} times")
+    check(l1 <= l0, "refine_inducing raised the loss")
+    out["refine_rmse"] = met["rmse"]
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fitc_scale(dev, idx):
+    """Phase 11, parts 4 and 5: config 7 (n=400,000, m=512, un-chunked) or
+    8 (n=2,000,000, m=512, n_chunk automatic) at 'fast': construction, one
+    timed loss+grad with its launches and peak memory, the aux and a
+    500-point predict.  Config 8 fails if its peak memory exceeds a quarter
+    of the un-chunked panels' 4 q n m itemsize.  Returns a dict."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    x, y, xte, ytrue, kw = fitc_config(idx)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m = LCGP(y, x, precision="fast", device=dev, **kw)
+    torch.cuda.synchronize()
+    out = {"construct_s": time.perf_counter() - t0, "n_chunk": m.n_chunk}
+    del y
+    n, q, mm = m.n, int(m.q), int(m._z.shape[0])
+    nb = -(-n // m.n_chunk) if m.n_chunk else 0
+    out["n_blocks"] = nb
+    before = fitc_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = timed_s(lambda: fitc_loss_grad(m, with_z=False))
+    out["loss_grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["loss_grad_peak_above_data_gb"] = (
+        torch.cuda.max_memory_allocated() - base) / 1e9
+    delta = count_delta(before, fitc_counts())["matern32"]
+    warm = timed_s(lambda: fitc_loss_grad(m, with_z=False))
+    out["loss_grad_s"], out["loss_grad_first_s"] = warm, first
+    # Kmm in f64, Knm in f32: once, or per block and again in the
+    # checkpoint's recomputation
+    expect = ((1, 1, 0), (1, 1, 0) if not nb else (2 * nb, nb, 0))
+    out["launches_per_loss_grad"] = [sum(c) for c in zip(*delta)]
+    panels = 4 * q * n * mm * 4
+    say(f"  config {idx} 'fast' (n={n}, m={mm}, n_chunk={m.n_chunk}, "
+        f"{nb} blocks): construct {out['construct_s']:.2f} s; loss+grad "
+        f"first {first:.4f} s, warm {warm:.4f} s; (K1, K2, K5) launches of "
+        f"the first f64 {delta[0]}, f32 {delta[1]}, expected {expect}; peak "
+        f"{out['loss_grad_peak_gb']:.3f} GB ({out['loss_grad_peak_above_data_gb']:.3f}"
+        f" GB above the resident model; the un-chunked panels "
+        f"4 q n m itemsize are {panels / 1e9:.3f} GB)")
+    check(delta == expect, f"config {idx} loss+grad launched {delta}")
+    out["loss_grad_device_ms"] = profile_device(
+        f"one config-{idx} 'fast' loss+grad", lambda: fitc_loss_grad(
+            m, with_z=False), 10)
+    say(f"  device busy {out['loss_grad_device_ms'] / 1e3:.4f} s of the "
+        f"warm {warm:.4f} s: idle share "
+        f"{1 - out['loss_grad_device_ms'] / 1e3 / warm:.1%}")
+    if idx == 8:
+        check(m.n_chunk == 32768 and nb == 62,
+              f"config 8 resolved n_chunk={m.n_chunk}, {nb} blocks")
+        check(torch.cuda.max_memory_allocated() <= panels / 4,
+              "config 8's peak exceeds a quarter of the un-chunked panels")
+    torch.cuda.reset_peak_memory_stats()
+    out["aux_s"] = timed_s(m.compute_aux_predictive_quantities)
+    out["predict_s"] = timed_s(lambda: out.update(
+        fitc_metrics(m, xte, ytrue)))
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(out["rmse"]), f"config {idx} predictions not finite")
+    say(f"  config {idx} aux {out['aux_s']:.3f} s, predict(500) "
+        f"{out['predict_s']:.3f} s, peak {out['serve_peak_gb']:.3f} GB; at "
+        f"the init (no fit): rmse {out['rmse']:.4f}, coverage "
+        f"{out['coverage']:.3f}")
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fitc(dev, registers):
+    """Phase 11: the FITC path.  The kernels against their plain versions
+    at config 6's shapes (part 1), then the main path with every count set
+    to 0 just before it and read just after: the card against the CPU at a
+    small cut (part 2), config 6 (part 3), config 7 and config 8 (parts 4
+    and 5).  Returns the kernel records."""
+    import torch
+    from lcgp_tpu_torch.models.sparse import select_inducing
+    x, _, _, _, kw = fitc_config(6)
+    x_min, x_max = x.min(0), x.max(0)
+    xs_np = (x - x_min) / (x_max - x_min)
+    xs = torch.as_tensor(xs_np, device=dev)
+    z = torch.as_tensor(select_inducing(xs_np, kw["inducing"]), device=dev)
+    records = phase_fitc_kernels(dev, xs, z)
+    del xs, z
+    torch.cuda.empty_cache()
+
+    reset_all_counts()
+    say("  == the main path, every kernel's counts set to 0")
+    say("  -- card vs CPU at a cut of config 6 (n=2000, m=64, f64)")
+    x, y, _, _, _ = fitc_config(6)
+    phase_fitc_cut(dev, x, y)
+    say("  -- config 6 (n=50,000, d=2, p=20, q=4, m=256)")
+    timings = {"config6": phase_fitc_config6(dev)}
+    for idx in (7, 8):
+        say(f"  -- config {idx}")
+        timings[f"config{idx}"] = phase_fitc_scale(dev, idx)
+    counts = fitc_counts()
+    say(f"  phase 11 main path launches (Gram, VJP, K5) f64 / f32: {counts}")
+    say(f"  phase 11 timings JSON: {json.dumps(timings)}")
+    for rec in records:
+        kind = rec["name"].split("_gram")[0]
+        which = 2 if "_vjp_x" in rec["name"] else \
+            1 if "_vjp" in rec["name"] else 0
+        f32 = rec["name"].endswith("_f32")
+        rec["launches"] = counts[kind][int(f32)][which]
+        check(rec["launches"] > 0, f"{rec['name']} did not launch on phase "
+              "11's main path")
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        kernel = ("gram_kernel", "gram_vjp_partials_kernel",
+                  "gram_vjp_x_partials_kernel")[which]
+        rec["registers"] = registers_of(registers, kernel,
+                                        family_of(kind).policy,
+                                        "float" if f32 else "double")
+    records[0]["model"] = timings
+    return records
+
+
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
@@ -2674,7 +3248,7 @@ def main() -> int:
     from lcgp_tpu_torch.models import transforms as tx
 
     lib = _build.build()
-    say(f"[2] K1-K4 built in {lib.build_seconds:.2f} s -> {lib.path}")
+    say(f"[2] K1-K5 built in {lib.build_seconds:.2f} s -> {lib.path}")
     registers = ptxas_report(lib.log)
 
     x, y, xte, ytrue = config4()
@@ -2761,6 +3335,14 @@ def main() -> int:
         "(n=4096, p=1000, q=20, d=8): the kernels against their plain "
         "versions, f64 and f32, then the model path with each kernel")
     records += phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers)
+    del x, y, xte, ytrue, xs
+    torch.cuda.empty_cache()
+
+    say("[11] the FITC inducing-point path at benchmarks/run_configs.py's "
+        "configs 6-8 (n=50,000, 400,000 and 2,000,000, d=2, p=20, q=4, "
+        "m=256 and 512): K1, K2 and K5 against their plain versions at "
+        "config 6's shapes, then the main path")
+    records += phase_fitc(dev, registers)
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

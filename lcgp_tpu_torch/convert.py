@@ -1,7 +1,7 @@
 """Carry parameters and data from the JAX package to the port.
 
-Both take NumPy arrays: the JAX package's free (unconstrained) parameters as
-``np.asarray(model._free.<field>)`` gives them, or as the fitted-parameter
+Each takes NumPy arrays: the JAX package's free (unconstrained) parameters
+as ``np.asarray(model._free.<field>)`` gives them, or as the fitted-parameter
 npz files under ``benchmarks/`` store them (keys lLmb, lLmb0, lsigma2s,
 lnugGPs).  Nothing here imports JAX.
 """
@@ -39,6 +39,12 @@ def full_data_from_numpy(xs, ys, phi, diag_D, sigma_map, device) -> FullData:
                     ys=_f64(ys, device), phi=_f64(phi, device),
                     diag_D=_f64(diag_D, device),
                     sigma_map=_index(sigma_map, device))
+
+
+def inducing_from_numpy(z, device) -> torch.Tensor:
+    """The JAX package's inducing set, standardized (``np.asarray(
+    model._z)``, (m, d)) -> the port's ``LCGP._z`` on ``device``."""
+    return _f64(z, device)
 
 
 def rep_data_from_numpy(xs, ybar, scale, r, phi, diag_D, sigma_map,

@@ -18,7 +18,10 @@
 // and the VJP's lengthscale term, cbar C0 dlnC0/dlnS_t without a division
 // (lens_term, from the prefix product of the factors below t and the suffix
 // product started at cbar * decay above t; lens_sum applies a constant
-// factor of the term once to the reduced sum).
+// factor of the term once to the reduced sum), and the VJP with respect to
+// the points' position term, cbar C0 g(S_t) with dC0/dS_t = -C0 g(S_t)
+// (x_term, the same products without the last factor of S_t, so that it is
+// 0 at S_t = 0 and divides by nothing; lens_sum applies its constant too).
 //
 // Both kernels of a family form C0 with these functions, and every step is
 // an explicitly rounded operation (__dmul_rn, __dadd_rn, fma), so the
@@ -96,6 +99,11 @@ struct Matern32 {
   static __device__ __forceinline__ T lens_term(T pre, T suf, T s) {
     return (pre * suf) * s * s;
   }
+  // g = S / (1 + S): cbar C0 g = (cbar e prod_{u>t}) (prod_{u<t}) S_t
+  template <typename T>
+  static __device__ __forceinline__ T x_term(T pre, T suf, T s) {
+    return (pre * suf) * s;
+  }
   static __device__ __forceinline__ double lens_sum(double g) { return g; }
 };
 
@@ -132,6 +140,13 @@ struct Matern52 {
     const T h = fma_rn(T(SQRT5), s, T(1));
     return (pre * suf) * ((s * s) * h);
   }
+  // g = 5/3 S (1 + sqrt5 S) / factor: the products times S_t (1 + sqrt5 S_t),
+  // and 5/3 once on the sum
+  template <typename T>
+  static __device__ __forceinline__ T x_term(T pre, T suf, T s) {
+    const T h = fma_rn(T(SQRT5), s, T(1));
+    return (pre * suf) * (s * h);
+  }
   static __device__ __forceinline__ double lens_sum(double g) {
     return FIVE_THIRDS * g;
   }
@@ -163,6 +178,11 @@ struct SE {
   template <typename T>
   static __device__ __forceinline__ T lens_term(T, T suf, T s) {
     return suf * (s * s);
+  }
+  // g = S
+  template <typename T>
+  static __device__ __forceinline__ T x_term(T, T suf, T s) {
+    return suf * s;
   }
   static __device__ __forceinline__ double lens_sum(double g) { return g; }
 };

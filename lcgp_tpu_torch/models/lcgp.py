@@ -5,14 +5,17 @@ aux accessors, npz ``save``/``load`` format and fit checkpoints as
 ``lcgp_tpu.LCGP``, for ``submethod='full'`` and ``'rep'``, every
 ``precision`` (``'high'`` float64, ``'mixed'`` refined f32 factors,
 ``'fast'`` float32, ``'auto'``) and every ``kernel`` (``'matern32'``,
-``'matern52'``, ``'rbf'``).  NumPy or tensors in, tensors on ``device`` out
-(float64, or float32 latents under ``'fast'``).  What is not ported yet
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``'matern52'``, ``'rbf'``), and the FITC inducing-point approximation
+(``inducing=``, ``n_chunk=``, :meth:`LCGP.refine_inducing`; its npz files
+too).  NumPy or tensors in, tensors on ``device`` out (float64, or float32
+latents under ``'fast'``).  What is not ported yet (``fit(mesh=)``) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -26,6 +29,7 @@ from . import basis as basis_mod
 from . import likelihood as lik
 from . import params as P
 from . import predict as pred
+from . import sparse
 from . import transforms as tx
 from .replication import group_replicates
 
@@ -67,10 +71,6 @@ class LCGP:
             raise ValueError("Invalid submethod. Choices are 'full' or 'rep'.")
         if kernel not in ('matern32', 'matern52', 'rbf'):
             raise ValueError("kernel must be 'matern32', 'matern52', or 'rbf'")
-        if inducing is not None:
-            raise NotImplementedError(
-                "inducing= (FITC) is not ported yet (ROADMAP.md Queue 1 "
-                "item 15)")
 
         self.device = _resolve_device(device)
         self.verbose = verbose
@@ -107,8 +107,10 @@ class LCGP:
         self.x_orig = self.x
         self.y_orig = self.y
 
-        # x is standardized on the full inputs in both submethods
+        # x is standardized on the full inputs in both submethods; xnorm
+        # (an O(n^2) host diagnostic nothing reads) is formed on access
         self.x, self.x_min, self.x_max = tx.standardize_x(self.x)
+        self._xnorm_cache = None
         if self.submethod == 'rep':
             # self.y stays the raw (p, N) y: the noise init reads it
             (self.x_unique, self.x_unique_s, self.group_ids, self.r,
@@ -116,8 +118,7 @@ class LCGP:
              self.ybar_std) = self._group(self.x_orig, self.y_orig)
             self.n = int(self.x_unique.shape[0])
         else:
-            self.y, self.ymean, self.ystd = tx.standardize_y(self.y,
-                                                             self.robust_mean)
+            self.y, self.ymean, self.ystd, _ = self.init_standard_y(self.y)
 
         if self.precision == 'auto':
             self.precision = ('mixed' if self.n >= self._AUTO_MIXED_N
@@ -160,7 +161,49 @@ class LCGP:
         self._params_version = 0
         self._aux = None
         self._aux_version = -1
+        # FITC's variance-clamp statistics of the last predict, as device
+        # scalars (count, worst, total) read only by _fitc_clamp_stats; None
+        # on the exact path or before a predict
+        self._fitc_clamp_accum = None
+        self._in_batched_predict = False
+        self._predict_pad_cols = 0
         self._data = self._build_data()
+
+        # FITC/Nystrom inducing points, standardized: an int m (greedy
+        # farthest-point rows of the standardized design) or an (m, d)
+        # array in original x units
+        self._z = None
+        if inducing is not None:
+            xs_std = self._data.xs.cpu().numpy()
+            if np.ndim(inducing) == 0:
+                m = int(inducing)
+                if m >= xs_std.shape[0]:
+                    raise ValueError(
+                        f'inducing={m} must be < n={xs_std.shape[0]} '
+                        '(use the exact path instead)')
+                z = sparse.select_inducing(xs_std, m)
+            else:
+                z = np.asarray(inducing, dtype=np.float64)
+                if z.ndim < 2:
+                    z = z[:, None]
+                z = ((z - self.x_min.cpu().numpy())
+                     / (self.x_max - self.x_min).cpu().numpy())
+            self._z = self._tensor(z)
+
+        # FITC n-axis streaming (sparse._fitc_stream): None = auto (stream
+        # when the (q, n, m) panels outgrow the memory budget), an int = the
+        # block size, 0 or negative = never stream
+        self._n_chunk_arg = n_chunk
+        self.n_chunk = None
+        if self._z is not None:
+            self.n_chunk = self._resolve_n_chunk()
+
+    def _resolve_n_chunk(self):
+        if self._n_chunk_arg is None:
+            return self._auto_n_chunk(int(self.q), int(self.n),
+                                      int(self._z.shape[0]), self.device,
+                                      self.precision)
+        return int(self._n_chunk_arg) if self._n_chunk_arg > 0 else None
 
     def _build_data(self):
         if self.submethod == 'rep':
@@ -239,6 +282,32 @@ class LCGP:
 
     def tx_x(self, xs):
         return xs * (self.x_max - self.x_min) + self.x_min
+
+    @property
+    def xnorm(self):
+        """Per-dimension mean positive pairwise |x_i - x_j| of the raw x
+        (reference lcgp.py:304-310), computed on first access."""
+        if self._xnorm_cache is None:
+            self._xnorm_cache = self._tensor(
+                tx.xnorm(self.x_orig.cpu().numpy()))
+        return self._xnorm_cache
+
+    @staticmethod
+    def init_standard_x(x):
+        """(xs, x_min, x_max, x, xnorm) of x (n, d): x min-max scaled to
+        [0, 1]^d and the per-dimension mean pairwise distance, on x's
+        device."""
+        x = torch.as_tensor(x, dtype=_F64)
+        xs, x_min, x_max = tx.standardize_x(x)
+        xnorm = torch.as_tensor(tx.xnorm(x.cpu().numpy()), dtype=_F64,
+                                device=x.device)
+        return xs, x_min, x_max, x, xnorm
+
+    def init_standard_y(self, y):
+        """(ys, center, spread, y): y (p, n) standardized per output row by
+        median/MAD (robust_mean) or mean/std."""
+        ys, c, sp = tx.standardize_y(y, self.robust_mean)
+        return ys, c, sp, y
 
     def tx_y(self, ys):
         """Inverse y-standardization: by ymean/ystd on the full path, by
@@ -337,6 +406,13 @@ class LCGP:
         self._free = P.unconstrain(*vals)
         self._params_version += 1
 
+    def init_params(self):
+        """Re-run the data-driven init (reference lcgp.py:490-513)."""
+        self._free = P.init_values(self.x.cpu().numpy(), self.y.cpu().numpy(),
+                                   self.q, self.diag_error_structure,
+                                   self.device)
+        self._params_version += 1
+
     # ------------------------------------------------------------------
     # Loss and fit
     # ------------------------------------------------------------------
@@ -347,12 +423,34 @@ class LCGP:
         parameters' conditioning calls for (never down)."""
         if self.precision == 'mixed':
             self._sync_refine_steps()
-        neglpost = (lik.neglpost_rep if self.submethod == 'rep'
-                    else lik.neglpost_full)
-        return neglpost(self._free, self._data,
-                        compute_dtype=self._compute_dtype,
-                        jitter=self._jitter, q_chunk=self.q_chunk,
-                        kernel=self.kernel)
+        return (self.neglpost_rep() if self.submethod == 'rep'
+                else self.neglpost())
+
+    def neglpost(self) -> torch.Tensor:
+        """The full-path loss at the current parameters: FITC's with
+        inducing points, the exact one otherwise."""
+        if self._z is not None:
+            return sparse.neglpost_full_fitc(
+                self._free, self._data, self._z,
+                compute_dtype=self._compute_dtype, kernel=self.kernel,
+                n_chunk=self.n_chunk)
+        return lik.neglpost_full(self._free, self._data,
+                                 compute_dtype=self._compute_dtype,
+                                 jitter=self._jitter, q_chunk=self.q_chunk,
+                                 kernel=self.kernel)
+
+    def neglpost_rep(self) -> torch.Tensor:
+        """The rep-path loss at the current parameters: FITC's with
+        inducing points, the exact one otherwise."""
+        if self._z is not None:
+            return sparse.neglpost_rep_fitc(
+                self._free, self._data, self._z,
+                compute_dtype=self._compute_dtype, kernel=self.kernel,
+                n_chunk=self.n_chunk)
+        return lik.neglpost_rep(self._free, self._data,
+                                compute_dtype=self._compute_dtype,
+                                jitter=self._jitter, q_chunk=self.q_chunk,
+                                kernel=self.kernel)
 
     def _sync_refine_steps(self):
         cur = mixed_ops.parse_refine(self._compute_dtype)
@@ -397,9 +495,22 @@ class LCGP:
             compute_dtype = self._compute_dtype
         if jitter is None:
             jitter = self._jitter
+        if self._z is not None:
+            fitc = self._fitc_loss(compute_dtype)
+            return lambda free: fitc(free, self._z)
         return lik.make_loss(self.submethod, self._data,
                              compute_dtype=compute_dtype, jitter=jitter,
                              q_chunk=self.q_chunk, kernel=self.kernel)
+
+    def _fitc_loss(self, compute_dtype):
+        """(free, z) -> the FITC loss of the submethod."""
+        fitc = (sparse.neglpost_rep_fitc if self.submethod == 'rep'
+                else sparse.neglpost_full_fitc)
+
+        def loss(free, z):
+            return fitc(free, self._data, z, compute_dtype=compute_dtype,
+                        kernel=self.kernel, n_chunk=self.n_chunk)
+        return loss
 
     # at this n, method='auto' stops letting the optimizer run unbounded
     _AUTO_ONDEVICE_N = 512
@@ -569,16 +680,24 @@ class LCGP:
                                      z['free_lsigma2s'], z['free_lnugGPs'])
             return int(z['step']), float(z['loss'])
 
-    # Working-set fraction of the device memory the q-chunk planner sizes
+    # Working-set fraction of the device memory the chunk planners size
     # against, and the budget where there is no device to ask (the CPU)
     _MEM_BUDGET_FRACTION = 10e9 / 15.75e9
     _MEM_BUDGET_DEFAULT = 10e9
 
     @classmethod
     def _mem_budget_bytes(cls, device: torch.device) -> float:
+        """The working-set budget of the chunk planners, as lcgp_tpu's
+        ``_hbm_budget_bytes`` resolves it: ``LCGP_TPU_HBM_BUDGET_BYTES``
+        when set; on CUDA the fraction of the card's total memory (a fixed
+        figure, as the TPU's ``bytes_limit`` is, so a decision does not
+        depend on what the caching allocator holds); else the default."""
+        env = os.environ.get('LCGP_TPU_HBM_BUDGET_BYTES')
+        if env:
+            return float(env)
         if device.type == 'cuda':
-            free, _ = torch.cuda.mem_get_info(device)
-            return cls._MEM_BUDGET_FRACTION * float(free)
+            total = torch.cuda.get_device_properties(device).total_memory
+            return cls._MEM_BUDGET_FRACTION * float(total)
         return cls._MEM_BUDGET_DEFAULT
 
     @classmethod
@@ -601,20 +720,75 @@ class LCGP:
                 return qc
         return 1
 
+    @classmethod
+    def _auto_n_chunk(cls, q: int, n: int, m: int, device: torch.device,
+                      precision: str = 'high'):
+        """The FITC n-axis block size (``sparse._fitc_stream``), as
+        lcgp_tpu chooses it: the un-chunked backward holds about 4
+        (q, n, m) panels, so stream once those outgrow the budget, in
+        power-of-two blocks of about 256 MiB of panel (at least 4096
+        points).  None = un-chunked."""
+        itemsize = 4 if precision == 'fast' else 8
+        if 4 * q * n * m * itemsize <= cls._mem_budget_bytes(device):
+            return None
+        per_point = q * m * itemsize
+        block = max(4096, int(2 ** np.floor(
+            np.log2(256 * 2**20 / per_point))))
+        return min(block, n)
+
+    def refine_inducing(self, steps: int = 200, learning_rate: float = 5e-3,
+                        joint: bool = True, verbose: bool = False):
+        """Gradient-refine the FITC inducing locations z (greedy
+        farthest-point init) by minimizing the FITC loss with Adam.
+
+        joint=True optimizes z together with the hyperparameters;
+        joint=False holds the hyperparameters fixed and moves only z.
+        Returns the final loss.  z stays unconstrained: the kernel is
+        defined everywhere, and projecting back to [0, 1]^d would undo the
+        optimization.  On CUDA the gradient in z is K5's."""
+        if self._z is None:
+            raise ValueError('refine_inducing requires an inducing-point '
+                             'model (construct with inducing=...)')
+        fitc = self._fitc_loss(self._compute_dtype)
+        if joint:
+            def loss(tree):
+                return fitc(tree['free'], tree['z'])
+            tree0 = {'free': self._free, 'z': self._z}
+        else:
+            def loss(tree):
+                return fitc(self._free, tree['z'])
+            tree0 = {'z': self._z}
+        res = minimize_adam(loss, tree0, steps=steps,
+                            learning_rate=learning_rate, verbose=verbose)
+        self._z = res.params['z'].contiguous()
+        if joint:
+            self._free = res.params['free']
+        self._params_version += 1
+        return float(res.fun)
+
     # ------------------------------------------------------------------
     # Prediction
     # ------------------------------------------------------------------
     def _ensure_aux(self):
-        """The predictive aux (FullAux or RepAux) at the current
-        parameters, rebuilt after any parameter change."""
+        """The predictive aux (FullAux, RepAux or FitcAux) at the current
+        parameters, rebuilt after any parameter change.  FITC under
+        'mixed' builds it in f64: its (m, m) systems are f64 by design."""
         if self._aux is None or self._aux_version != self._params_version:
             self._aux = None   # free the old factor before building the new
-            compute = (pred.compute_aux_rep if self.submethod == 'rep'
-                       else pred.compute_aux_full)
-            self._aux = compute(self._free, self._data,
-                                compute_dtype=self._compute_dtype,
-                                jitter=self._jitter, kernel=self.kernel,
-                                q_chunk=self.q_chunk)
+            if self._z is not None:
+                aux_dtype = (None if self.precision == 'mixed'
+                             else self._compute_dtype)
+                self._aux = sparse.compute_aux_fitc(
+                    self._free, self._data, self._z, self.submethod,
+                    compute_dtype=aux_dtype, kernel=self.kernel,
+                    n_chunk=self.n_chunk)
+            else:
+                compute = (pred.compute_aux_rep if self.submethod == 'rep'
+                           else pred.compute_aux_full)
+                self._aux = compute(self._free, self._data,
+                                    compute_dtype=self._compute_dtype,
+                                    jitter=self._jitter, kernel=self.kernel,
+                                    q_chunk=self.q_chunk)
             self._aux_version = self._params_version
         return self._aux
 
@@ -623,16 +797,18 @@ class LCGP:
         self._ensure_aux()
 
     # The aux accessors of lcgp_tpu (lcgp.py:1066-1152); each returns None
-    # on the submethod it does not belong to.
+    # on the submethod it does not belong to, and every dense factor's
+    # returns None on an inducing-point model.
     @property
     def CinvMs(self):
-        """(q, n) dual weights."""
-        return self._ensure_aux().CinvM
+        """(q, n) dual weights (FITC's ``u``)."""
+        aux = self._ensure_aux()
+        return aux.u if self._z is not None else aux.CinvM
 
     @property
     def LBs(self):
         """Full path: chol(I + D_k C_k), the factor the predictions use."""
-        if self.submethod == 'rep':
+        if self.submethod == 'rep' or self._z is not None:
             return None
         return self._ensure_aux().LB
 
@@ -641,7 +817,7 @@ class LCGP:
         """Full path: the reference's Th_k (lcgp.py:709-715), the symmetric
         square root of D_k (I + D_k C_k)^{-1}, rebuilt from ``LBs`` by one
         batched eigh.  The predictions never form it."""
-        if self.submethod == 'rep':
+        if self.submethod == 'rep' or self._z is not None:
             return None
         LB = self._ensure_aux().LB
         wB, U = torch.linalg.eigh(LB @ LB.mT)           # B = U diag(wB) U^T
@@ -651,7 +827,7 @@ class LCGP:
     @property
     def LTs(self):
         """Rep path: chol(C_k + diag(1/(d_k r)))."""
-        if self.submethod != 'rep':
+        if self.submethod != 'rep' or self._z is not None:
             return None
         return self._ensure_aux().LT
 
@@ -659,7 +835,7 @@ class LCGP:
     def Tks(self):
         """Rep path: the reference's T_k (lcgp.py:783-788), equal to
         (C_k + (d_k R)^{-1})^{-1}, rebuilt from ``LTs`` on access."""
-        if self.submethod != 'rep':
+        if self.submethod != 'rep' or self._z is not None:
             return None
         LT = self._ensure_aux().LT
         eye = torch.eye(LT.shape[-1], dtype=LT.dtype, device=LT.device)
@@ -668,14 +844,14 @@ class LCGP:
     @property
     def mks(self):
         """Rep path: (q, n) latent means at the training sites."""
-        if self.submethod != 'rep':
+        if self.submethod != 'rep' or self._z is not None:
             return None
         return self._ensure_aux().mks
 
     @property
     def psi_c(self):
         """Rep path: (q, p) Phi^T Sigma_used^{-1/2}."""
-        if self.submethod != 'rep':
+        if self.submethod != 'rep' or self._z is not None:
             return None
         return self._ensure_aux().psi_c
 
@@ -685,7 +861,9 @@ class LCGP:
 
         batch_size: evaluate test points in fixed-shape chunks of this many
         (the last chunk is padded by repeating its final row); None predicts
-        in one shot.  Not combined with return_fullcov.
+        in one shot.  Not combined with return_fullcov.  On an
+        inducing-point model the clamp statistics of the variances cover
+        the user's points of the whole call, not the padding.
         """
         x0 = self._verify_data_types(x0)
         predict_call = (self.predict_rep if self.submethod == 'rep'
@@ -696,15 +874,22 @@ class LCGP:
             raise ValueError('batch_size is not supported with '
                              'return_fullcov=True.')
         n0 = x0.shape[0]
-        chunks = []
-        for s in range(0, n0, batch_size):
-            blk = x0[s:s + batch_size]
-            pad = batch_size - blk.shape[0]
-            if pad:
-                blk = torch.cat([blk, blk[-1:].repeat(pad, 1)])
-            out = predict_call(x0=blk, return_fullcov=False)
-            chunks.append([o[:, :batch_size - pad] if pad else o
-                           for o in out])
+        self._fitc_clamp_accum = None
+        self._in_batched_predict = True
+        try:
+            chunks = []
+            for s in range(0, n0, batch_size):
+                blk = x0[s:s + batch_size]
+                pad = batch_size - blk.shape[0]
+                if pad:
+                    blk = torch.cat([blk, blk[-1:].repeat(pad, 1)])
+                self._predict_pad_cols = pad
+                out = predict_call(x0=blk, return_fullcov=False)
+                chunks.append([o[:, :batch_size - pad] if pad else o
+                               for o in out])
+        finally:
+            self._in_batched_predict = False
+            self._predict_pad_cols = 0
         return tuple(torch.cat([c[i] for c in chunks], dim=1)
                      for i in range(3))
 
@@ -712,13 +897,51 @@ class LCGP:
         x0 = self._verify_data_types(x0)
         return ((x0 - self.x_min) / (self.x_max - self.x_min)).contiguous()
 
+    def _record_clamp_stats(self, count, worst, total: int):
+        """Accumulate FITC's variance-clamp statistics on the device; the
+        host reads them only through ``_fitc_clamp_stats``."""
+        prev = self._fitc_clamp_accum
+        if prev is None:
+            self._fitc_clamp_accum = (count, worst, int(total))
+        else:
+            self._fitc_clamp_accum = (prev[0] + count,
+                                      torch.minimum(prev[1], worst),
+                                      prev[2] + int(total))
+
+    @property
+    def _fitc_clamp_stats(self):
+        """FITC's clamped predictive variances in the last predict call:
+        dict(n_clamped, total, frac, worst), or None."""
+        acc = self._fitc_clamp_accum
+        if acc is None:
+            return None
+        count, worst, total = int(acc[0]), float(acc[1]), int(acc[2])
+        return dict(n_clamped=count, total=total,
+                    frac=count / total if total else 0.0, worst=worst)
+
+    def _latent_predict(self, aux, x0s):
+        if self._z is not None:
+            ghat, gvar = sparse.predict_fitc_core(
+                self._free, self._data, aux, self._z, x0s,
+                compute_dtype=self._compute_dtype, kernel=self.kernel)
+            # statistics over the user's columns only, not batch padding
+            pad = self._predict_pad_cols
+            stats_src = gvar[:, :gvar.shape[-1] - pad] if pad else gvar
+            _, count, worst = sparse.clamp_variance(stats_src)
+            self._record_clamp_stats(count, worst, stats_src.numel())
+            return ghat, torch.clamp_min(gvar, 0.0)
+        core = (pred.predict_rep_core if self.submethod == 'rep'
+                else pred.predict_full_core)
+        return core(self._free, self._data, aux, x0s,
+                    compute_dtype=self._compute_dtype, jitter=self._jitter,
+                    kernel=self.kernel, q_chunk=self.q_chunk)
+
     def predict_full(self, x0, return_fullcov: bool = False):
         aux = self._ensure_aux()
+        if not self._in_batched_predict:
+            self._fitc_clamp_accum = None
         x0s = self._standardize_x0(x0)
-        ghat, gvar = pred.predict_full_core(
-            self._free, self._data, aux, x0s,
-            compute_dtype=self._compute_dtype, jitter=self._jitter,
-            kernel=self.kernel, q_chunk=self.q_chunk)
+        ghat, gvar = self._latent_predict(aux, x0s)
         self.ghat, self.gvar = ghat, gvar
         ypred, ypredvar, yconfvar = pred.recombine_full(
             self._free, self._data, ghat, gvar, self.ymean, self.ystd)
@@ -730,11 +953,10 @@ class LCGP:
 
     def predict_rep(self, x0, return_fullcov: bool = False):
         aux = self._ensure_aux()
+        if not self._in_batched_predict:
+            self._fitc_clamp_accum = None
         x0s = self._standardize_x0(x0)
-        ghat, gvar = pred.predict_rep_core(
-            self._free, self._data, aux, x0s,
-            compute_dtype=self._compute_dtype, jitter=self._jitter,
-            kernel=self.kernel, q_chunk=self.q_chunk)
+        ghat, gvar = self._latent_predict(aux, x0s)
         self.ghat, self.gvar = ghat, gvar
         if self.rep_standardize_ybar:
             mean, std = self.ybar_mean, self.ybar_std
@@ -765,10 +987,14 @@ class LCGP:
         def host(t):
             return t.cpu().numpy()
 
+        extra = {}
+        if self._z is not None:
+            extra['inducing_z_std'] = host(self._z)
         np.savez(path,
                  config=json.dumps(cfg),
                  x_orig=host(self.x_orig),
                  y_orig=host(self.y_orig),
+                 **extra,
                  # free (unconstrained) values are the source of truth so the
                  # roundtrip is exact; constrained values stored for inspection
                  free_lLmb=host(self._free.lLmb),
@@ -783,10 +1009,6 @@ class LCGP:
         with np.load(path, allow_pickle=False) as npz:
             z = dict(npz)
         cfg = json.loads(str(z['config']))
-        if 'inducing_z_std' in z:
-            raise NotImplementedError(
-                "loading an inducing-point (FITC) model is not ported yet "
-                "(ROADMAP.md Queue 1 item 15)")
         model = cls(y=z['y_orig'], x=z['x_orig'],
                     q=cfg['q'], var_threshold=None,
                     diag_error_structure=cfg['diag_error_structure'],
@@ -798,4 +1020,10 @@ class LCGP:
                     q_chunk=cfg.get('q_chunk'), device=device)
         model.free = P.FreeParams(z['free_lLmb'], z['free_lLmb0'],
                                   z['free_lsigma2s'], z['free_lnugGPs'])
+        if 'inducing_z_std' in z:
+            model._z = model._tensor(z['inducing_z_std'])
+            # the constructor saw no inducing set; resolve n_chunk now that
+            # the (q, n, m) panel's size is known
+            model._n_chunk_arg = cfg.get('n_chunk')
+            model.n_chunk = model._resolve_n_chunk()
         return model

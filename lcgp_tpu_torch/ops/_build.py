@@ -38,13 +38,19 @@ VJP_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I, _I, _I,
                 _I, _I, _P, _P, _P, _P, _P]
 # (q, n1, n2, d) -> f64 scratch entries for any family's VJP
 SCRATCH_ARGTYPES = [_I, _I, _I, _I]
+# (x1, x2, inv_l, amp, nug, M, q, n1, n2, d, partials, gx, stream)
+#  -> cudaError_t
+VJP_X_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# (n1, n2, d) -> f64 scratch entries for any family's VJP in x
+VJP_X_SCRATCH_ARGTYPES = [_I, _I, _I]
 
 
 class KernelLibrary:
     """The loaded shared library plus how it was built, with the entry
     points of every kernel family of ``ops/launch.py`` bound:
-    ``lcgp_<family>_gram_{f64,f32}``, ``lcgp_<family>_gram_vjp_{f64,f32}``
-    and the shared ``lcgp_matern32_gram_vjp_scratch``."""
+    ``lcgp_<family>_gram_{f64,f32}``, ``lcgp_<family>_gram_vjp_{f64,f32}``,
+    ``lcgp_<family>_gram_vjp_x_{f64,f32}`` and the shared scratch sizes
+    ``lcgp_matern32_gram_vjp_scratch`` and ``lcgp_gram_vjp_x_scratch``."""
 
     def __init__(self, path: Path, build_seconds: float, log: str):
         self.path = path
@@ -53,14 +59,17 @@ class KernelLibrary:
         self.lib = ctypes.CDLL(str(path))
         for family in FAMILIES:
             for kind, argtypes in (("gram", GRAM_ARGTYPES),
-                                   ("gram_vjp", VJP_ARGTYPES)):
+                                   ("gram_vjp", VJP_ARGTYPES),
+                                   ("gram_vjp_x", VJP_X_ARGTYPES)):
                 for dt in ("f64", "f32"):
                     fn = getattr(self.lib, f"lcgp_{family}_{kind}_{dt}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-        fn = self.lib.lcgp_matern32_gram_vjp_scratch
-        fn.argtypes = SCRATCH_ARGTYPES
-        fn.restype = ctypes.c_longlong
+        for fn, argtypes in (
+                (self.lib.lcgp_matern32_gram_vjp_scratch, SCRATCH_ARGTYPES),
+                (self.lib.lcgp_gram_vjp_x_scratch, VJP_X_SCRATCH_ARGTYPES)):
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
 
 
 _LIBRARY: KernelLibrary | None = None

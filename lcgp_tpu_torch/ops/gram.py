@@ -9,12 +9,23 @@ never written separately.  On the CPU it runs the plain version and the
 epilogue as tensor ops.  The VJPs (:func:`gram_vjp`, :func:`gram_vjp_fused`)
 run the kind's VJP kernel on CUDA and its plain VJP on the CPU.
 
+:func:`gram_stack` is differentiable.  When autograd is on and an operand
+requires a gradient it returns through :class:`GramFn`, whose backward is
+the kind's VJP kernel (K2, K3's or K4's) for the parameters and K5 for the
+points, or their plain versions on the CPU: the kernels' outputs carry no
+autograd history of their own, so without it the Gram terms would drop out
+of a gradient on CUDA without an error.  The exact losses form their
+gradient inside their own ``autograd.Function`` and never take this path.
+
 ``compute_dtype`` selects the precision the Gram is built in, as in
 ``lcgp_tpu/ops/gram.py:31-96``: None and the 'mixed' sentinel build in the
 inputs' dtype (f64), ``torch.float32`` casts the inputs and parameters to
 f32 and runs the kernels' f32 instantiations.
 """
 from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
 
 from . import linalg
 from .launch import family
@@ -29,15 +40,54 @@ def _cast(compute_dtype, *tensors):
     return tuple(t.to(compute_dtype).contiguous() for t in tensors)
 
 
+class GramFn(torch.autograd.Function):
+    """The Gram stack (q, n1, n2) of one kind as a differentiable function
+    of (x1, x2, lengthscales (q, d), amplitudes (q,), nuggets (q,)), the
+    counterpart of the retired Pallas kernel's ``jax.custom_vjp``
+    (``b21a99c^:lcgp_tpu/ops/matern_pallas.py:278-300``).
+
+    Forward: the kind's Gram kernel on CUDA, its plain version on the CPU.
+    Backward at the cotangent M: the kind's VJP kernel for the parameters
+    (only when one requires a gradient), K5 for x2 and K5 on (x2, x1, M^T)
+    for x1 (each only when it requires a gradient), or their plain
+    versions on the CPU.  Every operand is in one dtype."""
+
+    @staticmethod
+    def forward(ctx, kind, same, x1, x2, lengthscales, amplitudes, nuggets):
+        ctx.kind, ctx.same = kind, same
+        ctx.save_for_backward(x1, x2, lengthscales, amplitudes, nuggets)
+        return family(kind).gram(x1, x2, lengthscales, amplitudes, nuggets,
+                                 same=same)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cbar):
+        fam = family(ctx.kind)
+        x1, x2, ls, amp, nug = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        M = cbar.to(x1.dtype).contiguous()
+        glens = gamp = gnug = gx1 = gx2 = None
+        if any(need[4:7]):
+            glens, gamp, gnug = fam.vjp(x1, x2, ls, amp, nug, same=ctx.same,
+                                        cbar=M)
+        if need[3]:
+            gx2 = fam.vjp_x(x1, x2, ls, amp, nug, M=M)
+        if need[2]:
+            gx1 = fam.vjp_x(x2, x1, ls, amp, nug, M=M.mT.contiguous())
+        return None, None, gx1, gx2, glens, gamp, gnug
+
+
 def gram_stack(x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
                compute_dtype=None, kind: str = 'matern32',
                want_c0: bool = False):
-    """Batched (q, n1, n2) Gram stack; ``(stack, c0)`` when ``want_c0``."""
+    """Batched (q, n1, n2) Gram stack; ``(stack, c0)`` when ``want_c0``.
+    Differentiable through :class:`GramFn` (not with ``want_c0``)."""
     fam = family(kind)
-    x1, x2, lengthscales, amplitudes, nuggets = _cast(
-        compute_dtype, x1, x2, lengthscales, amplitudes, nuggets)
-    return fam.gram(x1, x2, lengthscales, amplitudes, nuggets, same=same,
-                    want_c0=want_c0)
+    ops = _cast(compute_dtype, x1, x2, lengthscales, amplitudes, nuggets)
+    if (not want_c0 and torch.is_grad_enabled()
+            and any(t.requires_grad for t in ops)):
+        return GramFn.apply(kind, same, *(t.contiguous() for t in ops))
+    return fam.gram(*ops, same=same, want_c0=want_c0)
 
 
 def gram_factor_target(x, lengthscales, amplitudes, nuggets, *, row_scale,

@@ -1,25 +1,28 @@
 """The kernel families and the launches of their hand-written Gram and
 Gram-VJP kernels, one code path for all of them.
 
-``csrc/gram_kernel.cuh`` (the Gram stack / factor target) and
-``csrc/gram_vjp_kernel.cuh`` (its VJP) are instantiated per family on a
-policy of ``csrc/gram_common.cuh``: K1/K2 for Matérn 3/2, K3 for Matérn 5/2
-and K4 for the squared exponential.  Their C entry points
-``lcgp_<family>_gram_{f64,f32}`` and ``lcgp_<family>_gram_vjp_{f64,f32}``
-take the same arguments, so one launcher serves all three.
+``csrc/gram_kernel.cuh`` (the Gram stack / factor target),
+``csrc/gram_vjp_kernel.cuh`` (its VJP in the parameters) and
+``csrc/gram_vjp_x_kernel.cuh`` (its VJP in the points of x2, K5) are
+instantiated per family on a policy of ``csrc/gram_common.cuh``: K1/K2 for
+Matérn 3/2, K3 for Matérn 5/2 and K4 for the squared exponential.  Their C
+entry points ``lcgp_<family>_gram_{f64,f32}``,
+``lcgp_<family>_gram_vjp_{f64,f32}`` and
+``lcgp_<family>_gram_vjp_x_{f64,f32}`` take the same arguments in every
+family, so one launcher serves all three.
 
 :data:`FAMILIES` is the one table of them: each :class:`Family` holds its
 name (the ``kernel=`` kind and the C entry points' infix), its label and
-policy, its plain versions' raw correlation and lengthscale term, and the
-functions built on them, which ``ops/matern.py``, ``ops/matern52.py`` and
+policy, its plain versions' raw correlation, lengthscale term and slope
+in the points, and the functions built on them, which ``ops/matern.py``, ``ops/matern52.py`` and
 ``ops/rbf.py`` export under the family's names and ``ops/gram.py``
 dispatches to by kind.
 
-A family's dispatchers (``gram``, ``vjp``, ``vjp_fused``) run its plain
-PyTorch version on CPU tensors and its kernel on CUDA tensors; any other
-device raises, and nothing falls back.  The plain versions share their
-bodies: a family supplies only its raw correlation and its lengthscale
-term.
+A family's dispatchers (``gram``, ``vjp``, ``vjp_fused``, ``vjp_x``) run
+its plain PyTorch version on CPU tensors and its kernel on CUDA tensors;
+any other device raises, and nothing falls back.  The plain versions share
+their bodies: a family supplies only its raw correlation, its lengthscale
+term and its slope.
 """
 from __future__ import annotations
 
@@ -87,6 +90,18 @@ def check_inputs(what, x1, x2, lengthscales, amplitudes, nuggets, row_scale,
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _check_operand(what, name, t, x1, shape):
+    """An operand beside x1 must share its device and dtype, have
+    ``shape`` and be contiguous."""
+    if t.device != x1.device or t.dtype != x1.dtype:
+        raise TypeError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                        f"x1 is {x1.dtype} on {x1.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {name} {tuple(t.shape)} must be {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def fused_cotangent(M, alpha, beta: float, w):
@@ -164,6 +179,30 @@ def _rbf_lens(w, a, b):
     return w * torch.square(a - b)
 
 
+# The families' slopes dlnC0/db_j = g(S_j) sign(a_j - b_j) of one dimension
+# in the scaled coordinates a (q, n1, 1), b (q, 1, n2), with
+# dC0/dS_j = -C0 g(S_j): the plain side of K5.  Each is 0 at S_j = 0 and
+# divides by nothing that can vanish.
+
+def _matern32_slope(a, b):
+    """g = S / (1 + S)."""
+    diff = a - b
+    return diff / (1.0 + torch.abs(diff))
+
+
+def _matern52_slope(a, b):
+    """g = 5/3 S (1 + a S) / (1 + a S + 5/3 S^2), a = sqrt(5)."""
+    diff = a - b
+    s = torch.abs(diff)
+    return _FIVE3 * diff * (1.0 + _SQRT5 * s) / (1.0 + _SQRT5 * s
+                                                 + _FIVE3 * s * s)
+
+
+def _rbf_slope(a, b):
+    """g = S."""
+    return a - b
+
+
 def _counted(family, method: str):
     """``family``'s ``method`` as a function that carries launch counters,
     ``.launches`` and ``.launches_f32`` (the f32 instantiation's).  The
@@ -182,16 +221,19 @@ class Family:
     ``name``: the ``kernel=`` kind and the C entry points' infix;
     ``label``: its Gram kernel's name (K1, K3, K4); ``policy``: the policy
     struct of ``csrc/gram_common.cuh`` its kernels are instantiated on;
-    ``c0``, ``lens``: its plain versions' raw correlation and lengthscale
-    summand.  Every launch of the Gram kernel adds one to
-    ``gram.launches`` (and, in f32, to ``gram.launches_f32``), every launch
-    of the VJP kernel to ``vjp``'s counters; nothing else counts."""
+    ``c0``, ``lens``, ``slope``: its plain versions' raw correlation,
+    lengthscale summand and slope in the points.  Every launch of the Gram
+    kernel adds one to ``gram.launches`` (and, in f32, to
+    ``gram.launches_f32``), every launch of the VJP kernel to ``vjp``'s
+    counters and every launch of K5, the VJP in the points, to
+    ``vjp_x``'s; nothing else counts."""
 
-    def __init__(self, name: str, label: str, policy: str, c0, lens):
+    def __init__(self, name: str, label: str, policy: str, c0, lens, slope):
         self.name, self.label, self.policy = name, label, policy
-        self.c0, self.lens = c0, lens
+        self.c0, self.lens, self.slope = c0, lens, slope
         self.gram = _counted(self, '_gram')
         self.vjp = _counted(self, '_vjp')
+        self.vjp_x = _counted(self, '_vjp_x')
 
     def plain(self, x1, x2, lengthscales, amplitudes, nuggets, *, same: bool,
               want_c0: bool = False):
@@ -363,16 +405,8 @@ class Family:
         dt = x1.dtype
         for name, t, shape in (('M', M, (q, n1, n2)), ('w', w, (q, n1)),
                                ('alpha', alpha, (q,))):
-            if t is None:
-                continue
-            if t.device != x1.device or t.dtype != dt:
-                raise TypeError(f"{what}: {name} is {t.dtype} on {t.device}, "
-                                f"x1 is {dt} on {x1.device}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{what}: {name} {tuple(t.shape)} must be "
-                                 f"{shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"{what}: {name} must be contiguous")
+            if t is not None:
+                _check_operand(what, name, t, x1, shape)
         if w is not None and not same:
             raise ValueError(f"{what}: w needs same=True")
         if w is None and beta != 0.0:
@@ -439,11 +473,89 @@ class Family:
         return tuple(g.to(p.dtype) for g, p in
                      zip(got, (lengthscales, amplitudes, nuggets)))
 
+    def vjp_x_plain(self, x1, x2, lengthscales, amplitudes, nuggets, *, M):
+        """The plain PyTorch VJP of :meth:`plain` with respect to x2, in
+        M's dtype: gx2 (n2, d) for the cotangent M (q, n1, n2), with
+
+            dC/dx2_bj = amp (1-eta) C0 slope(a_j, b_j) / l_j
+
+        (the nugget's diagonal does not depend on x).  The VJP with respect
+        to x1 is this function of (x2, x1, M^T)."""
+        return self._vjp_x_sum(x1, x2, lengthscales, amplitudes, nuggets, M,
+                               magnitude=False)
+
+    def scale_x(self, x1, x2, lengthscales, amplitudes, nuggets, *, M):
+        """The magnitude each entry of :meth:`vjp_x_plain` is a sum of: its
+        terms taken with |M| and |slope|.  K5's rounding error is judged
+        against this, as the VJP's against :meth:`scale`."""
+        return self._vjp_x_sum(x1, x2, lengthscales, amplitudes, nuggets,
+                               M.abs(), magnitude=True)
+
+    def _vjp_x_sum(self, x1, x2, lengthscales, amplitudes, nuggets, M, *,
+                   magnitude: bool):
+        lengthscales = torch.atleast_2d(lengthscales)
+        dt = M.dtype
+        inv_l = (1.0 / lengthscales).to(dt)
+        u1 = x1.to(dt)[None, :, :] * inv_l[:, None, :]
+        u2 = x2.to(dt)[None, :, :] * inv_l[:, None, :]
+        amp = torch.atleast_1d(amplitudes).to(dt)
+        nug = torch.atleast_1d(nuggets).to(dt)
+        w = M * (amp * (1.0 - nug / (1.0 + nug)))[:, None, None] \
+            * self.c0(u1, u2)
+        cols = []
+        for j in range(x1.shape[1]):
+            slope = self.slope(u1[:, :, j][:, :, None], u2[:, :, j][:, None, :])
+            if magnitude:
+                slope = slope.abs()
+            cols.append(torch.einsum('kab,kab,k->b', w, slope, inv_l[:, j]))
+        return torch.stack(cols, dim=-1)
+
+    def launch_vjp_x(self, x1, x2, lengthscales, amplitudes, nuggets, *, M):
+        """Launch K5 on CUDA tensors: gx2 (n2, d) for the cotangent M
+        (q, n1, n2); counts the launch.  Launches on the current stream and
+        does not synchronise."""
+        from ._build import build
+
+        what = f"{self.name} VJP-x kernel"
+        q, n1, n2, d = check_inputs(what, x1, x2, lengthscales, amplitudes,
+                                    nuggets, None, None, False)
+        _check_operand(what, 'M', M, x1, (q, n1, n2))
+        lib = build().lib
+        f32 = x1.dtype == torch.float32
+        fn = getattr(lib,
+                     f"lcgp_{self.name}_gram_vjp_x_{'f32' if f32 else 'f64'}")
+        inv_l = (1.0 / lengthscales).contiguous()
+        gx = torch.empty((n2, d), dtype=x1.dtype, device=x1.device)
+        partials = torch.empty((lib.lcgp_gram_vjp_x_scratch(n1, n2, d),),
+                               dtype=torch.float64, device=x1.device)
+        with torch.cuda.device(x1.device):
+            stream = torch.cuda.current_stream(x1.device).cuda_stream
+            err = fn(_ptr(x1), _ptr(x2), _ptr(inv_l), _ptr(amplitudes),
+                     _ptr(nuggets), _ptr(M), q, n1, n2, d, _ptr(partials),
+                     _ptr(gx), stream)
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: cudaError {err}")
+        self.vjp_x.launches += 1
+        self.vjp_x.launches_f32 += int(f32)
+        return gx
+
+    def _vjp_x(self, x1, x2, lengthscales, amplitudes, nuggets, *, M):
+        """gx2 (n2, d) for a Gram-stack cotangent M: the plain version on
+        CPU tensors, K5 on CUDA tensors."""
+        if x1.device.type == 'cpu':
+            return self.vjp_x_plain(x1, x2, lengthscales, amplitudes,
+                                    nuggets, M=M)
+        return self.launch_vjp_x(x1, x2, torch.atleast_2d(lengthscales),
+                                 torch.atleast_1d(amplitudes),
+                                 torch.atleast_1d(nuggets), M=M)
+
 
 FAMILIES = {f.name: f for f in (
-    Family('matern32', 'K1', 'Matern32', _matern32_c0, _matern32_lens),
-    Family('matern52', 'K3', 'Matern52', _matern52_c0, _matern52_lens),
-    Family('rbf', 'K4', 'SE', _rbf_c0, _rbf_lens),
+    Family('matern32', 'K1', 'Matern32', _matern32_c0, _matern32_lens,
+           _matern32_slope),
+    Family('matern52', 'K3', 'Matern52', _matern52_c0, _matern52_lens,
+           _matern52_slope),
+    Family('rbf', 'K4', 'SE', _rbf_c0, _rbf_lens, _rbf_slope),
 )}
 
 

@@ -27,11 +27,16 @@ def cholesky(mats: torch.Tensor) -> torch.Tensor:
     Keeps the JAX contract for a matrix that is not positive definite: the
     lower triangle of its factor comes back NaN, and nothing raises.
     ``torch.linalg.cholesky`` would raise instead, and on CUDA would
-    synchronise with the host to find out."""
+    synchronise with the host to find out.  The mask is written in place,
+    except where autograd records the factor (the FITC losses
+    differentiate through their (m, m) factors), which needs it intact."""
     L, info = torch.linalg.cholesky_ex(mats, check_errors=False)
     n = mats.shape[-1]
     lower = torch.ones((n, n), dtype=torch.bool, device=mats.device).tril_()
-    return L.masked_fill_((info > 0)[..., None, None] & lower, float('nan'))
+    mask = (info > 0)[..., None, None] & lower
+    if L.requires_grad:
+        return L.masked_fill(mask, float('nan'))
+    return L.masked_fill_(mask, float('nan'))
 
 
 def chol_logdet(chols: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 K1 (``lcgp_tpu_torch/csrc/matern32_gram.cu``), K2
 (``lcgp_tpu_torch/csrc/matern32_gram_vjp.cu``), K3 (``matern52_gram.cu`` and
-its VJP) and K4 (``rbf_gram.cu`` and its VJP) are CUDA kernels with no CPU
-mode, so these skip without a card.  This file imports neither JAX nor
+its VJP), K4 (``rbf_gram.cu`` and its VJP) and K5 (``gram_vjp_x.cu``, the
+Gram VJP in the points, and the FITC gradient through ``GramFn``) are CUDA
+kernels with no CPU mode, so these skip without a card.  This file imports neither JAX nor
 ``tests/conftest.py``'s JAX setup, so it runs on a machine that has only
 PyTorch:
 
@@ -740,3 +741,192 @@ def test_lcgp_kind_on_card_matches_cpu(dev, kind, submethod):
                     cpu.predict(x0, return_fullcov=full)):
         assert a.device.type == 'cuda'
         torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The FITC path: GramFn (the Gram kernels inside an autograd.Function whose
+# backward is the VJP kernel), K5 (the VJP in the points), and the FITC
+# loss's gradient on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_KINDS = ['matern32', 'matern52', 'rbf']
+
+
+@pytest.mark.parametrize('kind', FAMILY_KINDS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('q,n1,n2,d', [(4, 3000, 256, 2), (3, 333, 77, 5),
+                                       (2, 130, 65, 17), (4, 256, 256, 2)])
+def test_vjp_x_kernel_matches_plain(dev, kind, dtype, q, n1, n2, d):
+    """K5 against its plain version at a tall FITC shape, ragged shapes and
+    Kmm's square shape, with coincident points (S = 0): each entry within
+    VJP_BOUND of the magnitude of its terms; two launches the same bits."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES[kind]
+    x1, x2, ls, amp, nug = _inputs(dev, 90 + d, n1, n2, d, q, dtype)
+    x2[:5] = x1[:5]
+    M = torch.randn((q, n1, n2), generator=torch.Generator(
+        device=dev).manual_seed(d), dtype=dtype, device=dev)
+    before = fam.vjp_x.launches
+    got = fam.vjp_x(x1, x2, ls, amp, nug, M=M)
+    again = fam.vjp_x(x1, x2, ls, amp, nug, M=M)
+    ref = fam.vjp_x_plain(*(t.double() for t in (x1, x2, ls, amp, nug)),
+                          M=M.double())
+    torch.cuda.synchronize()
+    assert fam.vjp_x.launches == before + 2
+    assert got.shape == (n2, d) and got.dtype == dtype
+    assert torch.equal(got, again)
+    scale = fam.scale_x(*(t.double() for t in (x1, x2, ls, amp, nug)),
+                        M=M.double())
+    err = (got.double() - ref).abs()
+    assert bool((err <= VJP_BOUND[dtype] * scale).all()), float(err.max())
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_vjp_kernel_at_a_random_fitc_cotangent(dev, dtype):
+    """K2 at an arbitrary cross cotangent of Knm's tall shape."""
+    x1, x2, ls, amp, nug = _inputs(dev, 95, 3000, 256, 2, 4, dtype)
+    M = torch.randn((4, 3000, 256), generator=torch.Generator(
+        device=dev).manual_seed(95), dtype=dtype, device=dev)
+    got = TM.launch_matern32_vjp(x1, x2, ls, amp, nug, same=False, M=M)
+    args = [t.double() for t in (x1, x2, ls, amp, nug)]
+    ref = TM.matern32_gram_vjp_plain(*args, same=False, cbar=M.double())
+    scale = TM.matern32_gram_vjp_scale(*args, same=False, cbar=M.double())
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+def test_gram_stack_backward_runs_the_kernels(dev, monkeypatch):
+    """On CUDA, gram_stack with an operand that requires a gradient
+    returns a tensor with a grad_fn whose backward launches the VJP kernel
+    and K5, never a plain version."""
+    from lcgp_tpu_torch.ops.gram import gram_stack
+    from lcgp_tpu_torch.ops.launch import Family, FAMILIES
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('a plain version ran on CUDA tensors')
+    for name in ('plain', 'vjp_plain', 'vjp_x_plain'):
+        monkeypatch.setattr(Family, name, refuse)
+    fam = FAMILIES['matern32']
+    x1, z, ls, amp, nug = _inputs(dev, 97, 500, 64, 2, 4)
+    z.requires_grad_(True)
+    amp.requires_grad_(True)
+    before = (fam.gram.launches, fam.vjp.launches, fam.vjp_x.launches)
+    C = gram_stack(x1, z, ls, amp, nug, same=False)
+    K = gram_stack(z, z, ls, amp, nug, same=False)
+    assert C.grad_fn is not None and K.grad_fn is not None
+    gz, gamp = torch.autograd.grad(C.sum() + K.square().sum(), (z, amp))
+    torch.cuda.synchronize()
+    # two Grams, two VJPs, and K5 once for C and twice for K (z is both of
+    # its operands)
+    assert (fam.gram.launches, fam.vjp.launches, fam.vjp_x.launches) == \
+        (before[0] + 2, before[1] + 2, before[2] + 3)
+    assert bool(torch.isfinite(gz).all()) and float(gz.abs().max()) > 0
+
+
+def _fitc_problem(seed, n=400, submethod='full'):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, 2))
+    if submethod == 'rep':
+        x = np.repeat(x, rng.integers(1, 4, n), axis=0)
+    y = np.vstack([np.sin(4 * x[:, 0]) + x[:, 1], np.cos(3 * x[:, 1]),
+                   x[:, 0] * x[:, 1], np.sin(x.sum(1))])
+    return x, y + 0.05 * rng.standard_normal(y.shape), rng.uniform(0, 1,
+                                                                  (30, 2))
+
+
+def _z_grad_rtol(m):
+    """1e-9, or 10 eps cond(Kmm + jitter) where that is larger: the z
+    gradient is a small residue of terms through Kmm's factor (the
+    squared exponential's Kmm reaches cond ~1e9 at these inits, where two
+    reduction orders on one CPU part by ~1e-7 of its max |g|)."""
+    from lcgp_tpu_torch.models import params as TP
+    from lcgp_tpu_torch.models.sparse import KMM_JITTER
+    from lcgp_tpu_torch.ops.gram import gram_stack
+    with torch.no_grad():
+        ls, amp, _, nug = (t.cpu() for t in TP.constrain(m.free))
+        K = gram_stack(m._z.cpu(), m._z.cpu(), ls, amp, nug, same=False,
+                       kind=m.kernel)
+        K = K + KMM_JITTER * amp[:, None, None] * torch.eye(
+            K.shape[-1], dtype=K.dtype)
+        cond = float(torch.linalg.cond(K).max())
+    return max(1e-9, 10 * float(np.finfo(np.float64).eps) * cond)
+
+
+@pytest.mark.parametrize('kind', FAMILY_KINDS)
+@pytest.mark.parametrize('n_chunk', [0, 96])
+@pytest.mark.parametrize('submethod', ['full', 'rep'])
+def test_fitc_gradient_on_card_matches_cpu(dev, submethod, n_chunk, kind):
+    """The FITC loss and its gradient in (free, z) on the card against the
+    same port on the CPU (loss rtol 1e-10, each leaf within 1e-9 of its max
+    |g|, the z leaf within _z_grad_rtol): on CUDA the Gram terms reach the
+    gradient only through GramFn.
+    Launches per loss+grad: dense K1 2, VJP 2, K5 3 (Kmm's two operands and
+    Knm's); streamed over n_blocks, K1 1 + 2 n_blocks (the checkpoint
+    recomputes each block), VJP 1 + n_blocks, K5 2 + n_blocks."""
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES[kind]
+    x, y, x0 = _fitc_problem(21, submethod=submethod)
+    models = [lcgp_tpu_torch.LCGP(y, x, q=3, inducing=40, n_chunk=n_chunk,
+                                  kernel=kind, submethod=submethod,
+                                  device=d_) for d_ in (dev, 'cpu')]
+
+    def loss_grad(m):
+        tree = {'free': m.free, 'z': m._z}
+        fl = Flattener(tree)
+        flat = fl.ravel(tree).clone().requires_grad_(True)
+        t = fl.unravel(flat)
+        v = m._fitc_loss(m._compute_dtype)(t['free'], t['z'])
+        return v.detach(), torch.autograd.grad(v, flat)[0]
+    before = (fam.gram.launches, fam.vjp.launches, fam.vjp_x.launches)
+    vg, gg = loss_grad(models[0])
+    torch.cuda.synchronize()
+    nb = -(-models[0].n // n_chunk) if n_chunk else 0
+    expect = (2, 2, 3) if not n_chunk else (1 + 2 * nb, 1 + nb, 2 + nb)
+    assert (fam.gram.launches - before[0], fam.vjp.launches - before[1],
+            fam.vjp_x.launches - before[2]) == expect
+    vc, gc = loss_grad(models[1])
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-10, atol=0)
+    fl = Flattener({'free': models[1].free, 'z': models[1]._z})
+    got, ref = fl.unravel(gg.cpu()), fl.unravel(gc)
+    for a, b in zip(got['free'], ref['free']):
+        err = float((a - b).abs().max())
+        assert err <= 1e-9 * float(b.abs().max()), err
+    # the z gradient's rounding error grows with cond(Kmm + jitter)
+    err = float((got['z'] - ref['z']).abs().max())
+    assert err <= _z_grad_rtol(models[1]) * float(ref['z'].abs().max()), err
+    for a, b in zip(models[0].predict(x0, batch_size=16),
+                    models[1].predict(x0, batch_size=16)):
+        assert a.device.type == 'cuda'
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize('n_chunk', [0, 128])
+def test_fitc_fit_launch_counts_and_refine_on_card(dev, n_chunk):
+    """A 'fast' Adam fit launches K1 and K2 per step as the loss needs, f64
+    for Kmm and f32 for Knm (no K5), and refine_inducing launches K5 on
+    every step and moves z as the CPU port does."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES['matern32']
+    x, y, _ = _fitc_problem(23, n=500)
+    gpu = lcgp_tpu_torch.LCGP(y, x, q=3, inducing=32, n_chunk=n_chunk,
+                              precision='fast', device=dev)
+    nb = -(-500 // n_chunk) if n_chunk else 0
+    # Kmm in f64, Knm in f32 (per block, and again when recomputed)
+    per_step = (2, 2) if not n_chunk else (1 + 2 * nb, 1 + nb)
+    counters = (fam.gram, fam.vjp, fam.vjp_x)
+    before = [(c.launches, c.launches_f32) for c in counters]
+    gpu.fit(method='adam', steps=4)
+    torch.cuda.synchronize()
+    after = [(c.launches, c.launches_f32) for c in counters]
+    assert [a[0] - b[0] for a, b in zip(after, before)] == \
+        [4 * per_step[0], 4 * per_step[1], 0]
+    assert [a[1] - b[1] for a, b in zip(after, before)] == \
+        [4 * (per_step[0] - 1), 4 * (per_step[1] - 1), 0]
+    hi = [lcgp_tpu_torch.LCGP(y, x, q=3, inducing=32, n_chunk=n_chunk,
+                              device=d_) for d_ in (dev, 'cpu')]
+    before = fam.vjp_x.launches
+    losses = [m.refine_inducing(steps=3, joint=False) for m in hi]
+    assert fam.vjp_x.launches - before == 3 * (3 if not n_chunk else 2 + nb)
+    assert abs(losses[0] - losses[1]) <= 1e-9 * abs(losses[1])
+    torch.testing.assert_close(hi[0]._z.cpu(), hi[1]._z, rtol=0, atol=1e-9)

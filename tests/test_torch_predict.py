@@ -326,16 +326,17 @@ def test_kernel_kinds_are_ported(kind):
         _close(tm.loss(), jm.loss(), rtol=LOSS_RTOL)
 
 
-@pytest.mark.parametrize('kw,item', [
-    (dict(inducing=5), 'item 15'),
-])
-def test_unported_options_raise(kw, item):
+def test_inducing_option_is_ported():
+    """inducing= (FITC) constructs on both submethods and gives lcgp_tpu's
+    loss (tests/test_torch_sparse.py holds the rest of the path)."""
     x, y, _ = _problem(5, n=20, p=3)
-    with pytest.raises(NotImplementedError, match=item):
-        lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', **kw)
-    # the unported options raise on the rep path too
-    with pytest.raises(NotImplementedError, match=item):
-        lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', submethod='rep', **kw)
+    for submethod in ('full', 'rep'):
+        tm = lcgp_tpu_torch.LCGP(y, x, q=2, device='cpu', inducing=5,
+                                 submethod=submethod)
+        jm = lcgp_tpu.LCGP(y, x, q=2, inducing=5, submethod=submethod)
+        np.testing.assert_array_equal(tm._z.numpy(), np.asarray(jm._z))
+        tm.free = convert.free_params_from_numpy(*_free_np(jm), 'cpu')
+        _close(tm.loss(), jm.loss(), rtol=LOSS_RTOL)
 
 
 def test_rep_submethod_is_ported():
