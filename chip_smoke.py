@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (lcgp_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against DIR   # K1/K2 times and bits against DIR's
+    python3 chip_smoke.py --against DIR   # kernel times and bits against DIR's
 
 Phases, each printing its own lines:
 
@@ -109,10 +109,14 @@ instantiations in rows of their own); the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines are printed.  With ``--against DIR`` (another checkout,
 e.g. the parent commit unpacked with ``git archive``) it builds both
-checkouts' kernels, times K1 and K2 of each at the main path's shapes in
-turns (f64 and f32), fails unless both give the same bits, prints one JSON
-line and stops; an older checkout has no K3 or K4, so only K1 and K2 are
-compared.  Imports nothing of JAX.
+checkouts' kernels and times each kernel of both in turns, f64 and f32:
+K1, K2, K3, K4 (Gram and VJP) at config 4's square and fused shapes, K1 at
+the request shape, K3 and K5 (every family) at FITC's (4, 50000, 256).  It
+fails unless K1, K2, K4 and K5 give the other's bits, holds both
+checkouts' K3 against extended precision (the Gram at the fitted config-4
+lengthscales, the fused VJP's component 0), prints one JSON line and
+stops; a kernel the other checkout lacks is left out.  Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -209,9 +213,7 @@ def k3_vjp_ops_per_entry(d):
     product and sum (5d), sqrt5 times the sum and exp (~16), C0 and the G0
     term (2) and per lengthscale sum 7 (1 + sqrt5 S, S^2, their product,
     the prefix times the suffix, that times the term, the sum, and one fma
-    of the factor into the suffix).  The kernel also recomputes the factor
-    for the suffix (2d more), a register trade-off the bound does not
-    count."""
+    of the factor into the suffix)."""
     return 12 * d + 20
 
 
@@ -227,6 +229,11 @@ def k4_vjp_ops_per_entry(d):
     (S^2, the product, the sum)."""
     return 5 * d + 21
 
+
+# the kernel templates of a family whose Gram and VJP have their own (K3:
+# csrc/matern52_gram_kernel.cuh and matern52_gram_vjp_kernel.cuh); the
+# others instantiate gram_kernel.cuh and gram_vjp_kernel.cuh
+KERNEL_TEMPLATES = {"matern52": ("gram_staged_kernel", "gram_vjp_tma_kernel")}
 
 OPS_PER_ENTRY = {"matern32": (k1_ops_per_entry, k2_ops_per_entry),
                  "matern52": (k3_ops_per_entry, k3_vjp_ops_per_entry),
@@ -325,9 +332,10 @@ def ptxas_report(log):
         say(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes', 0)} bytes spilled, "
             f"{r.get('smem', 0)} bytes static smem")
-    check(len(rows) >= 80, f"ptxas reported {len(rows)} kernels, expected "
-          "80 (3 families x 2 dtypes x (4 MAXD x 3 + 1), and K5's finish "
-          "kernel in 2 dtypes)")
+    check(len(rows) >= 94, f"ptxas reported {len(rows)} kernels, expected "
+          "94 (3 families x 2 dtypes x (4 MAXD x 3 + 1), K3's Gram and VJP "
+          "also at MAXD 2 in 2 dtypes, K3's VJP without tensor copies at 5 "
+          "MAXD in 2 dtypes, and K5's finish kernel in 2 dtypes)")
     spills = [n for n, r in rows.items()
               if r["maxd"] <= 16 and r.get("spill_bytes", 0)]
     check(not spills, f"spills at MAXD <= 16: {spills}")
@@ -2610,7 +2618,8 @@ def phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers):
             rec["launches_per_eval"] = (per_eval32 if dt == "float"
                                         else per_eval)[i]
             rec["registers"] = registers_of(
-                registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
+                registers, KERNEL_TEMPLATES.get(
+                    kind, ("gram_kernel", "gram_vjp_partials_kernel"))[i],
                 fn.policy, dt)
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         recs[0]["model"] = timings
@@ -3145,9 +3154,9 @@ def phase_fitc(dev, registers):
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
-    own build code into its own build directory, with K1's and K2's entry
-    points bound as this one's (they keep their signatures from one version
-    to the next; an older checkout has no K3 or K4)."""
+    own build code into its own build directory, with every entry point it
+    has bound as this one's (they keep their signatures from one version to
+    the next; an older checkout lacks K3-K5, and those are left unbound)."""
     import ctypes
     from lcgp_tpu_torch.ops import _build
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
@@ -3158,21 +3167,89 @@ def other_library(root):
     check(out.returncode == 0,
           f"building the kernels of {root} failed:\n{out.stderr[-4000:]}")
     lib = ctypes.CDLL(out.stdout.split()[-1])
-    for kind, argtypes in (("gram", _build.GRAM_ARGTYPES),
-                           ("gram_vjp", _build.VJP_ARGTYPES)):
-        for dt in ("f64", "f32"):
-            fn = getattr(lib, f"lcgp_matern32_{kind}_{dt}")
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    fn = lib.lcgp_matern32_gram_vjp_scratch
-    fn.argtypes, fn.restype = _build.SCRATCH_ARGTYPES, ctypes.c_longlong
+    for family in OPS_PER_ENTRY:
+        for kind, argtypes in (("gram", _build.GRAM_ARGTYPES),
+                               ("gram_vjp", _build.VJP_ARGTYPES),
+                               ("gram_vjp_x", _build.VJP_X_ARGTYPES)):
+            for dt in ("f64", "f32"):
+                fn = getattr(lib, f"lcgp_{family}_{kind}_{dt}", None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    for name, argtypes in (
+            ("lcgp_matern32_gram_vjp_scratch", _build.SCRATCH_ARGTYPES),
+            ("lcgp_gram_vjp_x_scratch", _build.VJP_X_SCRATCH_ARGTYPES)):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_longlong
     return lib
 
 
-def phase_against(dev, xs, x0s, root):
-    """K1 and K2 of this checkout against another checkout's, at the main
-    path's shapes, f64 and f32, in turns (other, this, this, other), and
-    their outputs on the same inputs compared bit for bit.  Returns
-    {kernel: {"this": ms, "other": ms, "same_bits": bool}}."""
+def has_entry(lib, name):
+    """Whether a loaded kernel library exports ``name``."""
+    return getattr(lib, name, None) is not None
+
+
+def k3_gram_extended_errors(libs, xs, free_np):
+    """K3's Gram of each library at the fitted config-4 parameters (1e-6
+    lengthscale floor) against an extended-precision recomputation, at the
+    entries where the libraries differ and at 200,000 random entries:
+    {library: {"max_rel_err": where the reference is a normal f64,
+    "outside": entries outside rtol 1e-12 atol 1e-14}}; fails if this
+    checkout has any outside."""
+    import torch
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.models import params as P
+    ls, amp, _, nug = P.constrain(free_params_from_numpy(*free_np,
+                                                         xs.device))
+    q, n = ls.shape[0], xs.shape[0]
+    outs = {}
+    for key, lib in libs.items():
+        fn = raw_gram(lib, xs, xs, ls, amp, nug, True, family="matern52")
+        fn()
+        outs[key] = fn.outputs[0]
+    torch.cuda.synchronize()
+    differ = (outs["this"] != outs["other"]).nonzero()
+    rng = np.random.default_rng(5)
+    pick = np.stack([rng.integers(0, q, 200_000), rng.integers(0, n, 200_000),
+                     rng.integers(0, n, 200_000)], axis=1)
+    idx = np.concatenate([differ.cpu().numpy()[:1_000_000], pick])
+    k, i, j = idx[:, 0], idx[:, 1], idx[:, 2]
+    ld = np.longdouble
+    X = xs.cpu().numpy().astype(ld)
+    L, A, N = (t.cpu().numpy().astype(ld) for t in (ls, amp, nug))
+    S = np.abs(X[i] - X[j]) / L[k]
+    ref = np.where(i == j, A[k],
+                   A[k] * ((1 - N[k] / (1 + N[k])) * c0_extended("matern52",
+                                                                 S)))
+    errs = {}
+    # relative errors where the reference is a normal f64 (below, f64
+    # underflows), and the entries outside rtol 1e-12 atol 1e-14 anywhere
+    normal = np.abs(ref) >= 1e-300
+    for key, C in outs.items():
+        at = [torch.as_tensor(a, device=C.device) for a in (k, i, j)]
+        got = C[at[0], at[1], at[2]].cpu().numpy().astype(ld)
+        err = np.abs(got - ref)
+        errs[key] = {
+            "max_rel_err": float(np.max(err[normal] / np.abs(ref[normal]))),
+            "outside": int(np.sum(err > F64_ATOL + F64_RTOL * np.abs(ref)))}
+    say(f"  K3 f64 Gram at the fitted config-4 parameters vs extended "
+        f"precision ({int(differ.shape[0])} entries differ between the "
+        f"checkouts; those and 200,000 random entries): this "
+        f"{errs['this']}, other {errs['other']}")
+    check(errs["this"]["outside"] == 0, "K3 at the fitted parameters "
+          "differs from extended precision beyond rtol 1e-12 atol 1e-14")
+    return errs
+
+
+def phase_against(dev, xs, x0s, root, free_np):
+    """The kernels of this checkout against another checkout's, in turns
+    (other, this, this, other), f64 and f32: K1, K2, K4 (Gram and VJP) and
+    K5 of each family must give the other's bits; K3 and its VJP (which may
+    change their bits) are timed at config 4's square and fused shapes and
+    at FITC's (4, 50000, 256), and held against extended precision.  A
+    kernel the other checkout lacks is left out.  Returns {"kernels_ms":
+    {case: {"this": ms, "other": ms, "same_bits": bool, ...}},
+    "k3_extended": {...}}."""
     import torch
     from lcgp_tpu_torch.ops._build import build
     libs = {"this": build().lib, "other": other_library(root)}
@@ -3186,39 +3263,118 @@ def phase_against(dev, xs, x0s, root):
     M = torch.randn((q, n, n), generator=gen, dtype=f64, device=dev)
     w = torch.randn((q, n), generator=gen, dtype=f64, device=dev)
     x64 = x0s[:64].contiguous()
-    f32 = [t.float().contiguous() for t in (xs, ls, amp, nug, rs, dv, M, w)]
-    xs32, ls32, amp32, nug32, rs32, dv32, M32, w32 = f32
-    cases = {
-        f"K1 square+epilogue (q={q}, n={n})":
-            lambda lib: raw_gram(lib, xs, xs, ls, amp, nug, True, rs, dv),
-        f"K1 request (q={q}, n1=64, n2={n})":
-            lambda lib: raw_gram(lib, x64, xs, ls, amp, nug, False),
-        f"K2 fused (q={q}, n={n})":
-            lambda lib: raw_vjp(lib, xs, ls, amp, nug, M, 0.5 * rs, -0.5, w),
-        f"K1 f32 square+epilogue (q={q}, n={n})":
-            lambda lib: raw_gram(lib, xs32, xs32, ls32, amp32, nug32, True,
-                                 rs32, dv32),
-        f"K2 f32 fused (q={q}, n={n})":
-            lambda lib: raw_vjp(lib, xs32, ls32, amp32, nug32, M32,
-                                0.5 * rs32, -0.5, w32),
-    }
+    xs32, ls32, amp32, nug32, rs32, dv32, M32, w32 = (
+        t.float().contiguous() for t in (xs, ls, amp, nug, rs, dv, M, w))
+    # FITC's shape: config 6's points and inducing points, l ~ 1/16
+    xf, _, _, _, kw = fitc_config(6)
+    xf = (xf - xf.min(0)) / (xf.max(0) - xf.min(0))
+    zf = torch.as_tensor(xf[rng.choice(xf.shape[0], kw["inducing"],
+                                       replace=False)], device=dev)
+    xf = torch.as_tensor(xf, device=dev)
+    lf, af, nf = moderate_params(rng, 4, 2, dev, f64)
+    lf = lf * 0.1
+    Mf = torch.randn((4, xf.shape[0], zf.shape[0]), generator=gen, dtype=f64,
+                     device=dev)
+    fitc32 = [t.float().contiguous() for t in (xf, zf, lf, af, nf, Mf)]
+    sq, fi = f"q={q}, n={n}", f"q=4, n={xf.shape[0]}, m={zf.shape[0]}"
+
+    def cases_of(dt):
+        tag = "f64" if dt == f64 else "f32"
+        if dt == f64:
+            x_, l_, a_, g_, r_, v_, M_, w_ = xs, ls, amp, nug, rs, dv, M, w
+            F = (xf, zf, lf, af, nf, Mf)
+        else:
+            x_, l_, a_, g_, r_, v_, M_, w_ = (xs32, ls32, amp32, nug32, rs32,
+                                              dv32, M32, w32)
+            F = fitc32
+        out = {}
+        for fam, lab in (("matern32", "K1"), ("rbf", "K4"),
+                         ("matern52", "K3")):
+            vlab = "K2" if fam == "matern32" else f"{lab} VJP"
+            out[f"{lab} {tag} square+epilogue ({sq})"] = (
+                fam, "gram", lambda lib, fam=fam: raw_gram(
+                    lib, x_, x_, l_, a_, g_, True, r_, v_, family=fam))
+            out[f"{vlab} {tag} fused ({sq})"] = (
+                fam, "gram_vjp", lambda lib, fam=fam: raw_vjp(
+                    lib, x_, l_, a_, g_, M_, 0.5 * r_, -0.5, w_, family=fam))
+        if dt == f64:
+            out[f"K1 {tag} request (q={q}, n1=64, n2={n})"] = (
+                "matern32", "gram", lambda lib: raw_gram(
+                    lib, x64, xs, ls, amp, nug, False))
+        out[f"K3 {tag} Knm ({fi})"] = (
+            "matern52", "gram", lambda lib: raw_gram(
+                lib, F[0], F[1], *F[2:5], False, family="matern52"))
+        out[f"K3 VJP {tag} random cross cotangent ({fi})"] = (
+            "matern52", "gram_vjp", lambda lib: raw_vjp(
+                lib, F[0], *F[2:5], F[5], None, 0.0, None,
+                family="matern52", x2=F[1]))
+        for fam in OPS_PER_ENTRY:
+            out[f"K5 {fam} {tag} ({fi})"] = (
+                fam, "gram_vjp_x", lambda lib, fam=fam: raw_vjp_x(
+                    lib, F[0], F[1], *F[2:5], F[5], fam))
+        return out
+
     result = {}
-    for label, make in cases.items():
-        fns = {k: make(lib) for k, lib in libs.items()}
-        o1, t1, t2, o2 = (cuda_ms(fns[k])
-                          for k in ("other", "this", "this", "other"))
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in
-                   zip(fns["this"].outputs, fns["other"].outputs))
-        result[label] = {"this": (t1 + t2) / 2, "other": (o1 + o2) / 2,
-                         "same_bits": same}
-        say(f"  {label}: this {(t1 + t2) / 2:.4f} ms ({t1:.4f}/{t2:.4f}), "
-            f"{root}: {(o1 + o2) / 2:.4f} ms ({o1:.4f}/{o2:.4f}); outputs "
-            f"the same bits: {same}")
-        check(same, f"{label}: this checkout's output differs from {root}'s")
-        del fns
-        torch.cuda.empty_cache()
-    return result
+    for dt in (f64, torch.float32):
+        tag = "f64" if dt == f64 else "f32"
+        for label, (fam, kind, make) in cases_of(dt).items():
+            entry = f"lcgp_{fam}_{kind}_{tag}"
+            if not has_entry(libs["other"], entry):
+                say(f"  {label}: {root} has no {entry}; left out")
+                continue
+            fns = {k: make(lib) for k, lib in libs.items()}
+            o1, t1, t2, o2 = (cuda_ms(fns[k])
+                              for k in ("other", "this", "this", "other"))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(fns["this"].outputs, fns["other"].outputs))
+            diff = max(float((a.double() - b.double()).abs().max())
+                       for a, b in zip(fns["this"].outputs,
+                                       fns["other"].outputs))
+            this_ms, other_ms = (t1 + t2) / 2, (o1 + o2) / 2
+            result[label] = {"this": this_ms, "other": other_ms,
+                             "ratio": this_ms / other_ms, "same_bits": same,
+                             "max_abs_diff": diff}
+            say(f"  {label}: this {this_ms:.4f} ms ({t1:.4f}/{t2:.4f}), "
+                f"{root}: {other_ms:.4f} ms ({o1:.4f}/{o2:.4f}), ratio "
+                f"{this_ms / other_ms:.4f}; outputs the same bits: {same} "
+                f"(max abs diff {diff:.3e})")
+            if fam != "matern52":
+                check(same, f"{label}: this checkout's output differs from "
+                      f"{root}'s")
+            del fns
+            torch.cuda.empty_cache()
+    ext = {}
+    if has_entry(libs["other"], "lcgp_matern52_gram_f64"):
+        ext["gram_fitted_max_rel_err"] = k3_gram_extended_errors(libs, xs,
+                                                                 free_np)
+        # the fused VJP's component 0 against extended precision
+        ref = vjp_extended(xs, ls, amp, nug, 0, M, 0.5 * rs, -0.5, w,
+                           kind="matern52")
+        scale = family_of("matern52").scale(
+            xs, xs, ls[:1], amp[:1], nug[:1], same=True,
+            cbar=(0.5 * rs[:1, None, None] * M[:1]
+                  - 0.5 * w[:1, :, None] * w[:1, None, :]))
+        shares = {}
+        for key, lib in libs.items():
+            fn = raw_vjp(lib, xs, ls, amp, nug, M, 0.5 * rs, -0.5, w,
+                         family="matern52")
+            fn()
+            torch.cuda.synchronize()
+            share = 0.0
+            for g, e, s in zip(fn.outputs, ref, scale):
+                got = g[0].cpu().numpy().astype(np.longdouble)
+                e = np.asarray(e, dtype=np.longdouble)
+                sk = s[0].cpu().numpy().astype(np.longdouble)
+                share = max(share, float(np.max(np.abs(got - e) / sk)))
+            shares[key] = share
+        say(f"  K3 VJP f64 fused, component 0 vs extended precision: err / "
+            f"magnitude this {shares['this']:.3e}, other "
+            f"{shares['other']:.3e} (bound {VJP_BOUND:g})")
+        check(shares["this"] <= VJP_BOUND, "K3's VJP outside its bound of "
+              "the extended-precision sums")
+        ext["vjp_fused_err_per_magnitude"] = shares
+    return {"kernels_ms": result, "k3_extended": ext}
 
 
 def main() -> int:
@@ -3226,10 +3382,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of lcgp_tpu_torch on one CUDA card.")
     ap.add_argument("--against", metavar="DIR",
-                    help="only time K1 and K2 of this checkout against "
+                    help="only time the kernels of this checkout against "
                          "those of the checkout at DIR, in turns, and "
-                         "compare their outputs bit for bit (K1 and K2 "
-                         "only: an older checkout has no K3 or K4)")
+                         "compare their outputs bit for bit (K3's against "
+                         "extended precision; a kernel DIR lacks is left "
+                         "out)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3259,10 +3416,10 @@ def main() -> int:
     x0s = ((torch.as_tensor(xte, dtype=torch.float64, device=dev) - x_min)
            / (x_max - x_min)).contiguous()
     if args.against:
-        say(f"[3] K1 and K2 against those of {args.against}")
-        times = phase_against(dev, xs.contiguous(), x0s,
-                              Path(args.against).resolve())
-        say(json.dumps({"against": args.against, "kernels_ms": times}))
+        say(f"[3] the kernels against those of {args.against}")
+        got = phase_against(dev, xs.contiguous(), x0s,
+                            Path(args.against).resolve(), free_np)
+        say(json.dumps({"against": args.against, **got}))
         return 0
 
     say("[3] K1 against the plain version on the card")

@@ -1,7 +1,8 @@
-// Device code shared by the Gram kernels (gram_kernel.cuh: K1, K3 and K4's
-// forward) and the Gram-VJP kernels (gram_vjp_kernel.cuh): explicitly
-// rounded arithmetic, the raw distance, the three kernel families as
-// policies, and the triangle walk over tiles.
+// Device code shared by the Gram kernels (gram_kernel.cuh: K1 and K4's
+// forward; matern52_gram_kernel.cuh: K3's) and the Gram-VJP kernels
+// (gram_vjp_kernel.cuh, matern52_gram_vjp_kernel.cuh, gram_vjp_x_kernel.cuh):
+// explicitly rounded arithmetic, the raw distance, the three kernel families
+// as policies, and the triangle walk over tiles.
 //
 // Every family is separable in the scaled distances
 //
@@ -113,9 +114,6 @@ struct Matern32 {
 // never does before: ln(factor) <= sqrt5 S), so C0 is 0 there, not inf * 0.
 struct Matern52 {
   static constexpr bool kGuardUnderflow = true;
-  // the factor's fma chain needs more registers than 3 blocks leave (f64,
-  // MAXD 8) or than 2 leave (MAXD 16)
-  static constexpr int fwd_min_blocks(int maxd) { return maxd <= 8 ? 2 : 1; }
   template <typename T>
   static __device__ __forceinline__ T grow(T prod, T s) {
     const T g = mul_rn(fma_rn(T(FIVE_THIRDS), s, T(SQRT5)), s);
@@ -133,13 +131,9 @@ struct Matern52 {
   static __device__ __forceinline__ T c0(T prod, T e) {
     return e == T(0) ? T(0) : mul_rn(prod, e);
   }
-  // (cbar e prod_{u>t}) (prod_{u<t}) S_t^2 (1 + sqrt5 S_t), and 5/3 once
-  // on the sum
-  template <typename T>
-  static __device__ __forceinline__ T lens_term(T pre, T suf, T s) {
-    const T h = fma_rn(T(SQRT5), s, T(1));
-    return (pre * suf) * ((s * s) * h);
-  }
+  // (its lengthscale term, (cbar e prod_{u>t}) (prod_{u<t}) S_t^2
+  // (1 + sqrt5 S_t), is formed in K3's own VJP, matern52_gram_vjp_kernel.cuh;
+  // 5/3 goes once on the sum, lens_sum)
   // g = 5/3 S (1 + sqrt5 S) / factor: the products times S_t (1 + sqrt5 S_t),
   // and 5/3 once on the sum
   template <typename T>

@@ -1,7 +1,7 @@
 // The batched Gram stack / factorization target for Hopper (sm_90a), one
-// template for the three kernel families (gram_common.cuh's policies): K1
-// (matern32_gram.cu), K3 (matern52_gram.cu) and K4's forward (rbf_gram.cu)
-// are its instantiations.
+// template for two kernel families (gram_common.cuh's policies): K1
+// (matern32_gram.cu) and K4's forward (rbf_gram.cu) are its instantiations.
+// K3 (Matern 5/2) has its own template, matern52_gram_kernel.cuh.
 //
 //   C0[k,i,j]  = the family's correlation of S_t = |x1[i,t] - x2[j,t]| * inv_l[k,t]
 //   C[k,i,j]   = amp_k * ((1 - eta_k) * C0 + eta_k * [same && i == j]),
@@ -10,10 +10,9 @@
 //
 // What bounds it on the card: the writes.  Each output entry and component
 // costs a few f64 operations per dimension plus one f64 exp (3d + 18 for
-// Matern 3/2, 5d + 19 for Matern 5/2, 2d + 19 for SE) and is written once:
-// at q = 20, n = 4096 the square stack is 2.7 GB, 0.80 ms at 3.35 TB/s,
-// while one triangle of the arithmetic is 0.35-0.59 ms at the f64 peak
-// (d = 8).  So the design halves the arithmetic and keeps the stores
+// Matern 3/2, 2d + 19 for SE) and is written once: at q = 20, n = 4096 the
+// square stack is 2.7 GB, 0.80 ms at 3.35 TB/s, while one triangle of the
+// arithmetic is 0.35-0.41 ms at the f64 peak (d = 8).  So the design halves the arithmetic and keeps the stores
 // coalesced and wide:
 //
 // - A same-point Gram is exactly symmetric (gram_common.cuh), so the grid

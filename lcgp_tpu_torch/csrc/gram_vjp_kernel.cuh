@@ -1,7 +1,8 @@
-// The Gram-stack VJP for Hopper (sm_90a), one template for the three kernel
-// families (gram_common.cuh's policies): K2 (matern32_gram_vjp.cu) and the
-// VJPs of K3 (matern52_gram_vjp.cu) and K4 (rbf_gram_vjp.cu) are its
-// instantiations.
+// The Gram-stack VJP for Hopper (sm_90a), one template for two kernel
+// families (gram_common.cuh's policies): K2 (matern32_gram_vjp.cu) and K4's
+// VJP (rbf_gram_vjp.cu) are its instantiations.  K3's VJP has its own
+// template (matern52_gram_vjp_kernel.cuh), and shares this file's finish
+// kernel, scratch layout and tile walk.
 //
 // It reads the cotangent of the Gram stack as
 //
@@ -32,13 +33,12 @@
 // for bit.  The quotient by the factor costs no division: with the prefix
 // products of factors() and suffix products started at cbar * decay,
 // cbar C0 / f_t = [cbar decay prod_{u>t} f_u] prod_{u<t} f_u.  The suffix
-// recomputes f_u from S_u (two fmas and a multiply for Matern 5/2) rather
-// than keep a third MAXD array in registers.
+// recomputes f_u from S_u rather than keep a third MAXD array in
+// registers.
 //
 // What bounds it on the card: f64 arithmetic, with the read of M just under
 // it.  Each entry and component costs about 8d + 20 f64 instructions for
-// Matern 3/2 (84 at d = 8), 14d + 20 for Matern 5/2 (12d + 20 of them
-// needed: the suffix recomputes the factors) and 5d + 21 for SE; over
+// Matern 3/2 (84 at d = 8) and 5d + 21 for SE; over
 // one triangle of (20, 4096, 4096) Matern 3/2 is 0.83 ms at the f64 peak of
 // 17e12 instructions/s, and reading M once is 2.7 GB, 0.80 ms at 3.35 TB/s.
 // The design:

@@ -930,3 +930,225 @@ def test_fitc_fit_launch_counts_and_refine_on_card(dev, n_chunk):
     assert fam.vjp_x.launches - before == 3 * (3 if not n_chunk else 2 + nb)
     assert abs(losses[0] - losses[1]) <= 1e-9 * abs(losses[1])
     torch.testing.assert_close(hi[0]._z.cpu(), hi[1]._z, rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# K3's own kernels (csrc/matern52_gram_kernel.cuh: 32 x 32 tiles staged in
+# shared memory and written by bulk copies, or by plain stores where a row
+# is not 16-byte aligned; csrc/matern52_gram_vjp_kernel.cuh: 64 x 64 tiles
+# in 32-row stages loaded by a producer warp with tensor copies, or with
+# cp.async where M's rows are not 16-byte aligned): the edges of that design
+# ---------------------------------------------------------------------------
+
+
+def _k3_target(x1, x2, ls, amp, nug, same, rs, dv):
+    C, c0 = TM5.matern52_gram_plain(x1, x2, ls, amp, nug, same=same,
+                                    want_c0=True)
+    if rs is not None:
+        C = rs[:, None, None] * C + torch.diag_embed(dv)
+    return C, c0
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [31, 32, 33, 63, 64, 65])
+@pytest.mark.parametrize('want_c0', [False, True])
+def test_k3_gram_at_tile_and_stage_edges(dev, dtype, n, want_c0):
+    """The same-point factor target at n one below, at and one past a tile
+    of the forward (32) and of the VJP (64; its stages are 32 rows): exactly
+    symmetric, C0 exactly 1 on the diagonal, against the f64 plain version.
+    Odd n takes the path without bulk copies."""
+    x, _, ls, amp, nug = _inputs(dev, 200 + n, n, 1, 8, 3)
+    rs = torch.tensor([0.5, 1.0, 2.5], dtype=torch.float64, device=dev)
+    dv = torch.linspace(1.0, 2.0, 3 * n, dtype=torch.float64,
+                        device=dev).reshape(3, n)
+    cast = [t.to(dtype) for t in (x, ls, amp, nug, rs, dv)]
+    got, c0 = TM5.launch_matern52(cast[0], cast[0], *cast[1:4], same=True,
+                                  want_c0=want_c0, row_scale=cast[4],
+                                  diag_vec=cast[5])
+    ref, c0_ref = _k3_target(x, x, ls, amp, nug, True, rs, dv)
+    torch.cuda.synchronize()
+    tol = F64_TOL if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-6)
+    assert torch.equal(got, got.mT)
+    torch.testing.assert_close(got.double(), ref, **tol)
+    if want_c0:
+        assert torch.equal(c0, c0.mT)
+        assert bool((torch.diagonal(c0, dim1=-2, dim2=-1) == 1.0).all())
+        torch.testing.assert_close(c0.double(), c0_ref, **tol)
+
+
+@pytest.mark.parametrize('d', [1, 4, 5, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize('same', [True, False])
+def test_k3_kernels_at_every_maxd(dev, d, same):
+    """Every MAXD instantiation (4, 8, 16, 32) of K3's Gram and VJP, at d
+    on both sides of each bound, against the plain versions."""
+    x1, x2, ls, amp, nug = _inputs(dev, 300 + d, 97, 70, d, 3)
+    if same:
+        x2 = x1
+    got, c0 = TM5.launch_matern52(x1, x2, ls, amp, nug, same=same,
+                                  want_c0=True)
+    ref, c0_ref = _k3_target(x1, x2, ls, amp, nug, same, None, None)
+    cbar = torch.as_tensor(np.random.default_rng(d).standard_normal(
+        (3, 97, x2.shape[0])), device=dev)
+    g = TM5.launch_matern52_vjp(x1, x2, ls, amp, nug, same=same, M=cbar)
+    g_ref = TM5.matern52_gram_vjp_plain(x1, x2, ls, amp, nug, same=same,
+                                        cbar=cbar)
+    scale = TM5.matern52_gram_vjp_scale(x1, x2, ls, amp, nug, same=same,
+                                        cbar=cbar)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **F64_TOL)
+    torch.testing.assert_close(c0, c0_ref, **F64_TOL)
+    _assert_vjp_close(g, g_ref, scale, VJP_BOUND[torch.float64])
+
+
+def _k3_raw_gram(x1, x2, ls, amp, nug, same, offset):
+    """K3's Gram through its C entry into an output `offset` elements past
+    an allocation's start (so not 16-byte aligned for offset 1): the stack
+    and its C0."""
+    from lcgp_tpu_torch.ops._build import build
+    q, n1, n2, d = ls.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]
+    size = q * n1 * n2
+    raw = torch.full((2, size + offset), float('nan'), dtype=x1.dtype,
+                     device=x1.device)
+    out = raw[0, offset:].view(q, n1, n2)
+    c0 = raw[1, offset:].view(q, n1, n2)
+    inv = (1.0 / ls).contiguous()
+    tag = 'f64' if x1.dtype == torch.float64 else 'f32'
+    fn = getattr(build().lib, f'lcgp_matern52_gram_{tag}')
+    err = fn(x1.data_ptr(), x2.data_ptr(), inv.data_ptr(), amp.data_ptr(),
+             nug.data_ptr(), None, None, int(same), q, n1, n2, d,
+             out.data_ptr(), c0.data_ptr(),
+             torch.cuda.current_stream(x1.device).cuda_stream)
+    assert err == 0
+    return out, c0
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same,n1,n2', [(True, 100, 100), (False, 100, 77),
+                                        (False, 70, 130)])
+def test_k3_gram_misaligned_output(dev, dtype, same, n1, n2):
+    """An output 1 element past an aligned start takes the stores without
+    bulk copies: the same bits as the aligned launch."""
+    x1, x2, ls, amp, nug = (t.to(dtype) for t in
+                            _inputs(dev, 400 + n2, n1, n2, 5, 4))
+    if same:
+        x2 = x1
+    a_out, a_c0 = _k3_raw_gram(x1, x2, ls, amp, nug, same, 0)
+    m_out, m_c0 = _k3_raw_gram(x1, x2, ls, amp, nug, same, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a_out, m_out) and torch.equal(a_c0, m_c0)
+    ref, _ = _k3_target(x1.double(), x2.double(), ls.double(), amp.double(),
+                        nug.double(), same, None, None)
+    tol = F64_TOL if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(m_out.double(), ref, **tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_k3_request_split_over_components(dev, dtype):
+    """A request's 64 x n cross-covariance: few tiles, so the components
+    are split over a second grid dimension."""
+    x1, x2, ls, amp, nug = (t.to(dtype) for t in
+                            _inputs(dev, 7, 64, 2050, 8, 20))
+    got = TM5.matern52_gram(x1, x2, ls, amp, nug, same=False)
+    ref = TM5.matern52_gram_plain(*(t.double() for t in (x1, x2, ls, amp,
+                                                         nug)), same=False)
+    torch.cuda.synchronize()
+    tol = F64_TOL if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got.double(), ref, **tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [31, 33, 63, 64, 65, 129])
+def test_k3_vjp_fused_at_stage_edges_is_deterministic(dev, dtype, n):
+    """The fused cotangent at n around K3's VJP stage (32) and tile (64):
+    two launches give the same bits, within the bound of the f64 plain VJP.
+    Odd n loads M element-wise (the path without tensor copies)."""
+    x, _, ls, amp, nug = _inputs(dev, 500 + n, n, 1, 8, 3)
+    rng = np.random.default_rng(500 + n)
+    M = torch.as_tensor(rng.standard_normal((3, n, n)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((3, n)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, 3), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x, ls, amp, nug, M, alpha, w)]
+    runs = [TM5.matern52_gram_vjp_fused(*cast[:4], M=cast[4], alpha=cast[5],
+                                        beta=-0.5, w=cast[6])
+            for _ in range(2)]
+    ref = TM5.matern52_gram_vjp_fused_plain(x, ls, amp, nug, M=M,
+                                            alpha=alpha, beta=-0.5, w=w)
+    scale = TM5.matern52_gram_vjp_scale(
+        x, x, ls, amp, nug, same=True,
+        cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+    _assert_vjp_close(runs[0], ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same,n1,n2', [(True, 130, 130), (False, 130, 77),
+                                        (False, 65, 256)])
+@pytest.mark.parametrize('misaligned', [False, True])
+def test_k3_vjp_generic_cotangent(dev, dtype, same, n1, n2, misaligned):
+    """Any cotangent, same-point (non-symmetric) or cross, with M aligned or
+    one element past an aligned start (then loaded element-wise): against
+    the f64 plain VJP, and a misaligned M gives the aligned M's bits."""
+    x1, x2, ls, amp, nug = _inputs(dev, 600 + n2, n1, n2, 6, 4)
+    if same:
+        x2 = x1
+    cbar = torch.as_tensor(np.random.default_rng(n1).standard_normal(
+        (4, n1, n2)), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x1, x2, ls, amp, nug)]
+    Mc = cbar.to(dtype).contiguous()
+    got = TM5.launch_matern52_vjp(*cast, same=same, M=Mc)
+    if misaligned:
+        buf = torch.empty(Mc.numel() + 1, dtype=dtype, device=dev)
+        Mm = buf[1:].view(Mc.shape)
+        Mm.copy_(Mc)
+        again = TM5.launch_matern52_vjp(*cast, same=same, M=Mm)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+    ref = TM5.matern52_gram_vjp_plain(x1, x2, ls, amp, nug, same=same,
+                                      cbar=cbar)
+    scale = TM5.matern52_gram_vjp_scale(x1, x2, ls, amp, nug, same=same,
+                                        cbar=cbar)
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same', [True, False])
+def test_k3_vjp_c0_is_the_forwards_bit_for_bit(dev, dtype, same):
+    """With nug = 0 and a one-hot cotangent at (i, j), gamp[k] is the single
+    term C0[k, i, j] that the VJP recomputed: it must equal the forward's
+    C0 exactly, at entries of several tiles and stages."""
+    n1, n2 = 150, (150 if same else 97)
+    x1, x2, ls, amp, _ = (t.to(dtype) for t in
+                          _inputs(dev, 700, n1, n2, 8, 3))
+    if same:
+        x2 = x1
+    nug = torch.zeros(3, dtype=dtype, device=dev)
+    _, c0 = TM5.launch_matern52(x1, x2, ls, amp, nug, same=same,
+                                want_c0=True)
+    for i, j in ((0, 1), (37, 5), (140, 96), (70, 64), (33, 31)):
+        M = torch.zeros((3, n1, n2), dtype=dtype, device=dev)
+        M[:, i, j] = 1.0
+        gamp = TM5.launch_matern52_vjp(x1, x2, ls, amp, nug, same=same,
+                                       M=M)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(gamp, c0[:, i, j]), (i, j)
+
+
+def test_k3_f32_underflow_gives_zero_c0_and_finite_gradients(dev):
+    """f32 distances far past the lengthscales: the decay underflows to 0
+    (and the factors' product overflows), so C0 is 0 and the VJP's
+    lengthscale terms are 0 by select, never inf * 0."""
+    x1, x2, _, amp, nug = _inputs(dev, 800, 96, 80, 8, 2, torch.float32)
+    x2 = x2 + 50.0
+    ls = torch.full((2, 8), 1e-3, dtype=torch.float32, device=dev)
+    _, c0 = TM5.launch_matern52(x1, x2, ls, amp, nug, same=False,
+                                want_c0=True)
+    M = torch.randn((2, 96, 80), dtype=torch.float32, device=dev)
+    glens, gamp, gnug = TM5.launch_matern52_vjp(x1, x2, ls, amp, nug,
+                                                same=False, M=M)
+    torch.cuda.synchronize()
+    assert bool((c0 == 0).all())
+    for g in (glens, gamp, gnug):
+        assert bool(torch.isfinite(g).all())
+    assert bool((glens == 0).all()) and bool((gamp == 0).all())

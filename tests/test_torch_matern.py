@@ -190,7 +190,9 @@ def test_vjp_pairwise_triangle_sum_matches_jax(cotangent):
 
 @pytest.mark.parametrize('edited', ['gram_common.cuh', 'gram_kernel.cuh',
                                     'gram_vjp_kernel.cuh',
-                                    'matern32_gram.cu', 'rbf_gram_vjp.cu'])
+                                    'matern32_gram.cu', 'rbf_gram_vjp.cu',
+                                    'matern52_gram_kernel.cuh',
+                                    'matern52_gram_vjp_kernel.cuh'])
 def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch,
                                                edited):
     # every kernel is an instantiation of templates in shared headers:
