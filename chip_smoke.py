@@ -10,11 +10,13 @@ Phases, each printing its own lines:
 2. build the hand-written CUDA kernels from the sources in this checkout,
    one nvcc per source: K1 (csrc/matern32_gram.cu) and K2
    (csrc/matern32_gram_vjp.cu), K3 (csrc/matern52_gram.cu and its VJP),
-   K4 (csrc/rbf_gram.cu and its VJP) and K5 (csrc/gram_vjp_x.cu), every one
-   an instantiation of csrc/gram_kernel.cuh, csrc/gram_vjp_kernel.cuh or
-   csrc/gram_vjp_x_kernel.cuh; print the build time
-   and ptxas's registers, spills and shared memory per instantiation (a
-   spill at MAXD <= 16 fails);
+   K4 (csrc/rbf_gram.cu and its VJP) and K5 (csrc/gram_vjp_x.cu): K1 and
+   K4's Gram instantiate csrc/gram_kernel.cuh, K3's
+   csrc/matern52_gram_kernel.cuh, K2 csrc/gram_vjp_kernel.cuh, K3's and
+   K4's VJP csrc/matern52_gram_vjp_kernel.cuh and K5
+   csrc/gram_vjp_x_kernel.cuh; print the build time and ptxas's registers,
+   spills and shared memory per instantiation (142 of them; a spill at
+   MAXD <= 16 fails);
 3. hold K1 against its plain PyTorch version on the card at the main path's
    shapes (f64 square with epilogue and C0, exactly symmetric; the rep
    path's epilogue, row scale 1 and a diagonal 1/(D_k r_i) that varies per
@@ -84,11 +86,12 @@ Phases, each printing its own lines:
    instantiations, 'mixed' against 'high' at the init, and the rep path at
    phase 4's size against the CPU;
 11. the FITC inducing-point path (``inducing=``, ``n_chunk=``,
-   ``refine_inducing``) at benchmarks/run_configs.py's configs 6-8: K1 at
-   Knm's rectangular shape, K2 at a random cross cotangent and K5 (the
-   Gram VJP in the inducing points, csrc/gram_vjp_x.cu) of each family
-   against their plain versions at config 6's (4, 50000, 256), f64 and
-   f32, at a ragged tall shape too, timed with their bounds; then the main
+   ``refine_inducing``) at benchmarks/run_configs.py's configs 6-8: K1 and
+   K4's Gram at Knm's rectangular shape, K2 and K4's VJP at a random cross
+   cotangent (two launches bit for bit equal) and K5 (the Gram VJP in the
+   inducing points, csrc/gram_vjp_x.cu) of each family against their
+   plain versions at config 6's (4, 50000, 256), f64 and f32, at a ragged
+   tall shape too, timed with their bounds; then the main
    path with every count set to 0: the loss gradient in (free, z) on the
    card against the CPU at a cut of config 6 (n=2000, m=64) for each
    family, dense and streamed; config 6 (n=50,000, m=256): the f64
@@ -110,13 +113,17 @@ line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before those lines are printed.  With ``--against DIR`` (another checkout,
 e.g. the parent commit unpacked with ``git archive``) it builds both
 checkouts' kernels and times each kernel of both in turns, f64 and f32:
-K1, K2, K3, K4 (Gram and VJP) at config 4's square and fused shapes, K1 at
-the request shape, K3 and K5 (every family) at FITC's (4, 50000, 256).  It
-fails unless K1, K2, K4 and K5 give the other's bits, holds both
-checkouts' K3 against extended precision (the Gram at the fitted config-4
-lengthscales, the fused VJP's component 0), prints one JSON line and
-stops; a kernel the other checkout lacks is left out.  Imports nothing of
-JAX.
+K1, K2, K3, K4 (Gram and VJP) at config 4's square and fused shapes and
+at FITC's (4, 50000, 256) (Knm, a random cross cotangent), K1 at the
+request shape, and K5 of every family at FITC's shape.  It fails unless
+K1, K2, K3 (Gram and VJP) and K4's Gram give the other's bits, and unless
+K4's VJP and K5, the kernels redesigned against the parent
+(``AGAINST_REDESIGNED``), are within their bounds of their plain versions
+and give the same bits on two launches; it holds K3's Gram at the fitted
+config-4 lengthscales, K3's and K4's fused VJP (component 0) and K4's
+fused VJP at the fitted parameters (the components at the 1e-6 floor)
+against extended precision, prints one JSON line and stops; a kernel the
+other checkout lacks is left out.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -224,16 +231,22 @@ def k4_ops_per_entry(d, epilogue):
 
 
 def k4_vjp_ops_per_entry(d):
-    """K4's VJP: the cotangent (2), S and its fma into the sum (2d), -1/2
-    times the sum and exp (~17), the G0 term (2) and per lengthscale sum 3
-    (S^2, the product, the sum)."""
-    return 5 * d + 21
+    """K4's VJP: the cotangent (3), per dimension the raw difference, its
+    square, the fma into the decay's argument and the fma into the
+    lengthscale sum (4d), exp on the lean loop (~10) and the G0 term (2)."""
+    return 4 * d + 15
 
 
-# the kernel templates of a family whose Gram and VJP have their own (K3:
-# csrc/matern52_gram_kernel.cuh and matern52_gram_vjp_kernel.cuh); the
-# others instantiate gram_kernel.cuh and gram_vjp_kernel.cuh
-KERNEL_TEMPLATES = {"matern52": ("gram_staged_kernel", "gram_vjp_tma_kernel")}
+# each family's Gram and VJP kernel templates (ptxas's names): K1 and K4's
+# Gram instantiate csrc/gram_kernel.cuh, K3's csrc/matern52_gram_kernel.cuh;
+# K2 csrc/gram_vjp_kernel.cuh, K3's and K4's VJP
+# csrc/matern52_gram_vjp_kernel.cuh; K5 of every family
+# csrc/gram_vjp_x_kernel.cuh
+KERNEL_TEMPLATES = {
+    "matern32": ("gram_kernel", "gram_vjp_partials_kernel"),
+    "matern52": ("gram_staged_kernel", "gram_vjp_tma_kernel"),
+    "rbf": ("gram_kernel", "gram_vjp_tma_kernel")}
+K5_TEMPLATE = "gram_vjp_x_tma_kernel"
 
 OPS_PER_ENTRY = {"matern32": (k1_ops_per_entry, k2_ops_per_entry),
                  "matern52": (k3_ops_per_entry, k3_vjp_ops_per_entry),
@@ -332,10 +345,12 @@ def ptxas_report(log):
         say(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes', 0)} bytes spilled, "
             f"{r.get('smem', 0)} bytes static smem")
-    check(len(rows) >= 94, f"ptxas reported {len(rows)} kernels, expected "
-          "94 (3 families x 2 dtypes x (4 MAXD x 3 + 1), K3's Gram and VJP "
-          "also at MAXD 2 in 2 dtypes, K3's VJP without tensor copies at 5 "
-          "MAXD in 2 dtypes, and K5's finish kernel in 2 dtypes)")
+    check(len(rows) >= 142, f"ptxas reported {len(rows)} kernels, expected "
+          "142 in 2 dtypes: K1's and K4's Gram (4 MAXD each), K3's Gram (5 "
+          "MAXD), K2 (4 MAXD and its finish kernel), K3's and K4's VJP (5 "
+          "MAXD with tensor copies, 5 without, and the finish kernel each), "
+          "K5 of 3 families (5 MAXD with tensor copies, 5 without) and K5's "
+          "finish kernel")
     spills = [n for n, r in rows.items()
               if r["maxd"] <= 16 and r.get("spill_bytes", 0)]
     check(not spills, f"spills at MAXD <= 16: {spills}")
@@ -2618,9 +2633,7 @@ def phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers):
             rec["launches_per_eval"] = (per_eval32 if dt == "float"
                                         else per_eval)[i]
             rec["registers"] = registers_of(
-                registers, KERNEL_TEMPLATES.get(
-                    kind, ("gram_kernel", "gram_vjp_partials_kernel"))[i],
-                fn.policy, dt)
+                registers, KERNEL_TEMPLATES[kind][i], fn.policy, dt)
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         recs[0]["model"] = timings
         records.extend(recs)
@@ -2704,18 +2717,18 @@ def count_delta(before, after):
 
 
 def phase_fitc_kernels(dev, xs, z):
-    """Phase 11, part 1: K1 rectangular (Knm), K2 at an arbitrary cross
-    cotangent and K5 of each family against their plain versions on the
-    card at config 6's shapes (4, n, m), f64 and f32, timed in turns with
-    their bounds, and once at a ragged tall shape.  Returns the kernel
-    records (their launches come from the main path)."""
+    """Phase 11, part 1: K1 and K4's Gram rectangular (Knm), K2 and K4's
+    VJP at an arbitrary cross cotangent (two launches bit for bit equal)
+    and K5 of each family against their plain versions on the card at
+    config 6's shapes (4, n, m), f64 and f32, timed in turns with their
+    bounds, and once at a ragged tall shape.  Returns the kernel records
+    (their launches come from the main path)."""
     import torch
     from lcgp_tpu_torch.ops._build import build
     lib = build().lib
     rng = np.random.default_rng(31)
     q, n, d, m = 4, xs.shape[0], xs.shape[1], z.shape[0]
     records = []
-    k1 = family_of("matern32")
     for dt in (torch.float64, torch.float32):
         tag, size = ("f64", 8) if dt == torch.float64 else ("f32", 4)
         rtol, atol = ((F64_RTOL, F64_ATOL) if dt == torch.float64
@@ -2730,61 +2743,87 @@ def phase_fitc_kernels(dev, xs, z):
         M = torch.randn((q, n, m), generator=gen, dtype=dt, device=dev)
         ins = (x1.numel() + x2.numel() + ls_.numel() + 2 * q) * size
 
-        # K1: Knm
-        def p_gram():
-            return k1.plain(x1, x2, ls_, amp_, nug_, same=False)
-        err_g = [compare(f"K1 {tag} Knm (q={q}, n={n}, m={m}, d={d}) vs "
-                         "plain", k1.launch(x1, x2, ls_, amp_, nug_,
-                                            same=False)[0], p_gram(),
-                         rtol, atol)]
         xr, zr = x1[:12345], x2[:200]
-        err_g.append(compare(f"K1 {tag} ragged (q={q}, n=12345, m=200) vs "
-                             "plain", k1.launch(xr, zr, ls_, amp_, nug_,
-                                                same=False)[0],
-                             k1.plain(xr, zr, ls_, amp_, nug_, same=False),
-                             rtol, atol))
-        t_g = time_pair(f"K1 {tag} Knm (q={q} n={n} m={m})",
-                        raw_gram(lib, x1, x2, ls_, amp_, nug_, False), p_gram,
-                        q * n * m * size, plain_reps=3)
-        b_g = say_bound(f"K1 {tag} Knm", t_g[0], q * n * m * size + ins,
-                        q * n * m * k1_ops_per_entry(d, False), rate)
-        records.append(dict(
-            name=f"matern32_gram_fitc{'' if tag == 'f64' else '_f32'}",
-            route="cuda", source=K1_SOURCE, replaces=K1_REPLACES,
-            max_abs_err=max(err_g), ms=t_g[0], plain_ms=t_g[1],
-            bound_ms=b_g[0], bound_by=b_g[1], library_ms=None,
-            shape=f"Knm {tag} q={q} n={n} m={m} d={d}"))
+        # K1 and K4's Gram at Knm, K2 and K4's VJP at a random cross
+        # cotangent (they share the plain family functions)
+        for kind in ("matern32", "rbf"):
+            fam = family_of(kind)
+            g_ops, v_ops = OPS_PER_ENTRY[kind]
+            glab = fam.label
+            vlab = "K2" if kind == "matern32" else f"{glab} VJP"
+            g_src, v_src, g_rep, v_rep = (
+                (K1_SOURCE, K2_SOURCE, K1_REPLACES, K2_REPLACES)
+                if kind == "matern32" else
+                (f"lcgp_tpu_torch/csrc/{kind}_gram.cu",
+                 f"lcgp_tpu_torch/csrc/{kind}_gram_vjp.cu", *REPLACES[kind]))
 
-        # K2 at a random cross cotangent
-        args64 = [t.double() for t in (x1, x2, ls_, amp_, nug_)]
+            def p_gram(fam=fam):
+                return fam.plain(x1, x2, ls_, amp_, nug_, same=False)
 
-        def p_vjp():
-            return k1.vjp_plain(x1, x2, ls_, amp_, nug_, same=False, cbar=M)
-        err_v = []
-        for a1, a2, Mc, lab in ((x1, x2, M, f"n={n}, m={m}"),
-                                (xr, zr, M[:, :12345, :200].contiguous(),
-                                 "ragged n=12345, m=200")):
-            got = k1.launch_vjp(a1, a2, ls_, amp_, nug_, same=False, M=Mc)
-            b64 = [t.double() for t in (a1, a2, ls_, amp_, nug_)]
-            ref = k1.vjp_plain(*b64, same=False, cbar=Mc.double())
-            scale = k1.scale(*b64, same=False, cbar=Mc.double())
-            torch.cuda.synchronize()
-            err_v.append(compare_vjp(f"K2 {tag} at a random cotangent "
-                                     f"(q={q}, {lab}) vs plain", got, ref,
-                                     scale, vjp_bound=vjp_bound))
-        t_v = time_pair(f"K2 {tag} random cotangent (q={q} n={n} m={m})",
-                        raw_vjp(lib, x1, ls_, amp_, nug_, M, None, 0.0, None,
-                                x2=x2), p_vjp, M.numel() * size, "read",
-                        plain_reps=3)
-        b_v = say_bound(f"K2 {tag} random cotangent", t_v[0],
-                        M.numel() * size + ins + q * (d + 2) * size,
-                        q * n * m * (k2_ops_per_entry(d) - 2), rate)
-        records.append(dict(
-            name=f"matern32_gram_vjp_fitc{'' if tag == 'f64' else '_f32'}",
-            route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
-            max_abs_err=max(err_v), ms=t_v[0], plain_ms=t_v[1],
-            bound_ms=b_v[0], bound_by=b_v[1], library_ms=None,
-            shape=f"random cross cotangent {tag} q={q} n={n} m={m} d={d}"))
+            def p64(*ts, fam=fam):
+                return fam.plain(*(t.double() for t in ts), same=False)
+            # against the plain version in f64 at the same (f32) inputs
+            err_g = [compare(f"{glab} {tag} Knm (q={q}, n={n}, m={m}, d={d}) "
+                             "vs plain f64", fam.launch(x1, x2, ls_, amp_,
+                                                        nug_, same=False)[0],
+                             p64(x1, x2, ls_, amp_, nug_), rtol, atol)]
+            err_g.append(compare(f"{glab} {tag} ragged (q={q}, n=12345, "
+                                 "m=200) vs plain f64",
+                                 fam.launch(xr, zr, ls_, amp_, nug_,
+                                            same=False)[0],
+                                 p64(xr, zr, ls_, amp_, nug_), rtol, atol))
+            t_g = time_pair(f"{glab} {tag} Knm (q={q} n={n} m={m})",
+                            raw_gram(lib, x1, x2, ls_, amp_, nug_, False,
+                                     family=kind), p_gram,
+                            q * n * m * size, plain_reps=3)
+            b_g = say_bound(f"{glab} {tag} Knm", t_g[0],
+                            q * n * m * size + ins,
+                            q * n * m * g_ops(d, False), rate)
+            records.append(dict(
+                name=f"{kind}_gram_fitc{'' if tag == 'f64' else '_f32'}",
+                route="cuda", source=g_src, replaces=g_rep,
+                max_abs_err=max(err_g), ms=t_g[0], plain_ms=t_g[1],
+                bound_ms=b_g[0], bound_by=b_g[1], library_ms=None,
+                shape=f"Knm {tag} q={q} n={n} m={m} d={d}"))
+
+            def p_vjp(fam=fam):
+                return fam.vjp_plain(x1, x2, ls_, amp_, nug_, same=False,
+                                     cbar=M)
+            err_v = []
+            for a1, a2, Mc, lab in ((x1, x2, M, f"n={n}, m={m}"),
+                                    (xr, zr, M[:, :12345, :200].contiguous(),
+                                     "ragged n=12345, m=200")):
+                got = fam.launch_vjp(a1, a2, ls_, amp_, nug_, same=False,
+                                     M=Mc)
+                again = fam.launch_vjp(a1, a2, ls_, amp_, nug_, same=False,
+                                       M=Mc)
+                b64 = [t.double() for t in (a1, a2, ls_, amp_, nug_)]
+                ref = fam.vjp_plain(*b64, same=False, cbar=Mc.double())
+                scale = fam.scale(*b64, same=False, cbar=Mc.double())
+                torch.cuda.synchronize()
+                check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                      f"{vlab} {tag} at a random cotangent ({lab}): two "
+                      "launches differ")
+                err_v.append(compare_vjp(f"{vlab} {tag} at a random "
+                                         f"cotangent (q={q}, {lab}) vs "
+                                         "plain; two launches the same bits",
+                                         got, ref, scale,
+                                         vjp_bound=vjp_bound, kernel=vlab))
+            t_v = time_pair(f"{vlab} {tag} random cotangent (q={q} n={n} "
+                            f"m={m})",
+                            raw_vjp(lib, x1, ls_, amp_, nug_, M, None, 0.0,
+                                    None, family=kind, x2=x2), p_vjp,
+                            M.numel() * size, "read", plain_reps=3)
+            b_v = say_bound(f"{vlab} {tag} random cotangent", t_v[0],
+                            M.numel() * size + ins + q * (d + 2) * size,
+                            q * n * m * (v_ops(d) - 2), rate)
+            records.append(dict(
+                name=f"{kind}_gram_vjp_fitc{'' if tag == 'f64' else '_f32'}",
+                route="cuda", source=v_src, replaces=v_rep,
+                max_abs_err=max(err_v), ms=t_v[0], plain_ms=t_v[1],
+                bound_ms=b_v[0], bound_by=b_v[1], library_ms=None,
+                shape=f"random cross cotangent {tag} q={q} n={n} m={m} "
+                      f"d={d}"))
 
         # K5 of each family
         for kind in OPS_PER_ENTRY:
@@ -3142,8 +3181,7 @@ def phase_fitc(dev, registers):
         check(rec["launches"] > 0, f"{rec['name']} did not launch on phase "
               "11's main path")
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-        kernel = ("gram_kernel", "gram_vjp_partials_kernel",
-                  "gram_vjp_x_partials_kernel")[which]
+        kernel = (*KERNEL_TEMPLATES[kind], K5_TEMPLATE)[which]
         rec["registers"] = registers_of(registers, kernel,
                                         family_of(kind).policy,
                                         "float" if f32 else "double")
@@ -3241,17 +3279,77 @@ def k3_gram_extended_errors(libs, xs, free_np):
     return errs
 
 
+# The kernels whose bits may differ from the other checkout's, as (family,
+# entry point): those redesigned against the parent, K4's VJP and K5 of
+# every family.  Each is held to its plain version instead, and its two
+# launches to the same bits; every other kernel must give the other
+# checkout's bits.
+AGAINST_REDESIGNED = {("rbf", "gram_vjp"), ("matern32", "gram_vjp_x"),
+                      ("matern52", "gram_vjp_x"), ("rbf", "gram_vjp_x")}
+
+
+def vjp_extended_shares(libs, kind, xs, ls, amp, nug, M, alpha, w, ks):
+    """Each library's fused VJP of ``kind`` at the cotangent alpha_k M_k -
+    w_k w_k^T / 2, components ``ks`` against vjp_extended: {library: the
+    largest error over the magnitude of its sum's terms}, where a sum with
+    no terms (magnitude 0) must be exactly 0.  Fails if this checkout's
+    outputs are not finite."""
+    import torch
+    fam = family_of(kind)
+    ld = np.longdouble
+    refs, scales = {}, {}
+    for k in ks:
+        refs[k] = vjp_extended(xs, ls, amp, nug, k, M, alpha, -0.5, w,
+                               kind=kind)
+        sl = slice(k, k + 1)
+        scales[k] = fam.scale(
+            xs, xs, ls[sl], amp[sl], nug[sl], same=True,
+            cbar=(alpha[sl, None, None] * M[sl]
+                  - 0.5 * w[sl, :, None] * w[sl, None, :]))
+    shares = {}
+    for key, lib in libs.items():
+        fn = raw_vjp(lib, xs, ls, amp, nug, M, alpha, -0.5, w, family=kind)
+        fn()
+        torch.cuda.synchronize()
+        if key == "this":
+            check(all(bool(torch.isfinite(o).all()) for o in fn.outputs),
+                  f"{kind} VJP: non-finite outputs")
+        share = 0.0
+        for k in ks:
+            for g, e, sc in zip(fn.outputs, refs[k], scales[k]):
+                err = np.abs(g[k].cpu().numpy().astype(ld)
+                             - np.asarray(e, dtype=ld))
+                sk = sc[0].cpu().numpy().astype(ld)
+                if bool(np.any(err[sk == 0] > 0)):
+                    share = float("inf")
+                pos = sk > 0
+                if bool(pos.any()):
+                    share = max(share, float(np.max(err[pos] / sk[pos])))
+        shares[key] = share
+    return shares
+
+
 def phase_against(dev, xs, x0s, root, free_np):
     """The kernels of this checkout against another checkout's, in turns
-    (other, this, this, other), f64 and f32: K1, K2, K4 (Gram and VJP) and
-    K5 of each family must give the other's bits; K3 and its VJP (which may
-    change their bits) are timed at config 4's square and fused shapes and
-    at FITC's (4, 50000, 256), and held against extended precision.  A
-    kernel the other checkout lacks is left out.  Returns {"kernels_ms":
+    (other, this, this, other), f64 and f32: K1, K2, K3 and K4 at config
+    4's square and fused shapes, K1 at the request shape, and every
+    family's Gram at FITC's Knm, K2, K3's and K4's VJP at a random cross
+    cotangent of that shape and K5 of each family at (4, 50000, 256).
+    Every kernel must give the other's bits except those in
+    AGAINST_REDESIGNED, which are held to their plain versions (the VJPs
+    within 1e-12 (f64) or 1e-5 (f32) of each sum's terms' magnitude) with
+    two launches of the same bits.  K3's Gram at the fitted config-4
+    lengthscales, and K3's and K4's fused VJP, component 0, are held
+    against extended precision, and K4's fused VJP also at the fitted
+    parameters (1e-6 lengthscale floor) in the components at that floor.
+    A kernel the other checkout lacks is left out.  Returns {"kernels_ms":
     {case: {"this": ms, "other": ms, "same_bits": bool, ...}},
-    "k3_extended": {...}}."""
+    "extended": {...}}."""
     import torch
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.models import params as P
     from lcgp_tpu_torch.ops._build import build
+    from lcgp_tpu_torch.ops.launch import fused_cotangent
     libs = {"this": build().lib, "other": other_library(root)}
     f64 = torch.float64
     rng = np.random.default_rng(1)
@@ -3279,7 +3377,11 @@ def phase_against(dev, xs, x0s, root, free_np):
     sq, fi = f"q={q}, n={n}", f"q=4, n={xf.shape[0]}, m={zf.shape[0]}"
 
     def cases_of(dt):
+        """{label: (family, entry, make(lib) -> launch, plain(outputs,
+        label) or None)}: ``plain`` holds a redesigned kernel's outputs to
+        its plain version at the same inputs, in f64."""
         tag = "f64" if dt == f64 else "f32"
+        bound = VJP_BOUND if dt == f64 else VJP_BOUND_F32
         if dt == f64:
             x_, l_, a_, g_, r_, v_, M_, w_ = xs, ls, amp, nug, rs, dv, M, w
             F = (xf, zf, lf, af, nf, Mf)
@@ -3287,37 +3389,68 @@ def phase_against(dev, xs, x0s, root, free_np):
             x_, l_, a_, g_, r_, v_, M_, w_ = (xs32, ls32, amp32, nug32, rs32,
                                               dv32, M32, w32)
             F = fitc32
+        F64 = [t.double() for t in F]
+
+        def fused_plain(outs, label, fam):
+            xd, ld_, ad, gd, Md, al, wd = (t.double() for t in (
+                x_, l_, a_, g_, M_, 0.5 * r_, w_))
+            ref = fam.fused_plain(xd, ld_, ad, gd, M=Md, alpha=al,
+                                  beta=-0.5, w=wd)
+            scale = fam.scale(xd, xd, ld_, ad, gd, same=True,
+                              cbar=fused_cotangent(Md, al, -0.5, wd))
+            return compare_vjp(f"{label} vs plain", outs, ref, scale,
+                               vjp_bound=bound, kernel=fam.label + " VJP")
+
+        def cross_plain(outs, label, fam):
+            ref = fam.vjp_plain(*F64[:5], same=False, cbar=F64[5])
+            scale = fam.scale(*F64[:5], same=False, cbar=F64[5])
+            return compare_vjp(f"{label} vs plain", outs, ref, scale,
+                               vjp_bound=bound, kernel=fam.label + " VJP")
+
+        def x_plain(outs, label, fam):
+            ref = fam.vjp_x_plain(*F64[:5], M=F64[5])
+            scale = fam.scale_x(*F64[:5], M=F64[5])
+            err = (outs[0].double() - ref).abs()
+            share = float((err / scale.clamp_min(1e-300)).max())
+            say(f"  {label} vs plain: max_abs_err={float(err.max()):.3e}, "
+                f"max err/magnitude={share:.3e} (bound {bound:g})")
+            check(bool(torch.isfinite(outs[0]).all()), f"{label}: not finite")
+            check(bool((err <= bound * scale).all()),
+                  f"{label}: outside {bound:g} x magnitude")
+            return float(err.max())
+
         out = {}
         for fam, lab in (("matern32", "K1"), ("rbf", "K4"),
                          ("matern52", "K3")):
             vlab = "K2" if fam == "matern32" else f"{lab} VJP"
             out[f"{lab} {tag} square+epilogue ({sq})"] = (
                 fam, "gram", lambda lib, fam=fam: raw_gram(
-                    lib, x_, x_, l_, a_, g_, True, r_, v_, family=fam))
+                    lib, x_, x_, l_, a_, g_, True, r_, v_, family=fam), None)
             out[f"{vlab} {tag} fused ({sq})"] = (
                 fam, "gram_vjp", lambda lib, fam=fam: raw_vjp(
-                    lib, x_, l_, a_, g_, M_, 0.5 * r_, -0.5, w_, family=fam))
+                    lib, x_, l_, a_, g_, M_, 0.5 * r_, -0.5, w_, family=fam),
+                fused_plain)
+            out[f"{lab} {tag} Knm ({fi})"] = (
+                fam, "gram", lambda lib, fam=fam: raw_gram(
+                    lib, F[0], F[1], *F[2:5], False, family=fam), None)
+            out[f"{vlab} {tag} random cross cotangent ({fi})"] = (
+                fam, "gram_vjp", lambda lib, fam=fam: raw_vjp(
+                    lib, F[0], *F[2:5], F[5], None, 0.0, None, family=fam,
+                    x2=F[1]), cross_plain)
         if dt == f64:
             out[f"K1 {tag} request (q={q}, n1=64, n2={n})"] = (
                 "matern32", "gram", lambda lib: raw_gram(
-                    lib, x64, xs, ls, amp, nug, False))
-        out[f"K3 {tag} Knm ({fi})"] = (
-            "matern52", "gram", lambda lib: raw_gram(
-                lib, F[0], F[1], *F[2:5], False, family="matern52"))
-        out[f"K3 VJP {tag} random cross cotangent ({fi})"] = (
-            "matern52", "gram_vjp", lambda lib: raw_vjp(
-                lib, F[0], *F[2:5], F[5], None, 0.0, None,
-                family="matern52", x2=F[1]))
+                    lib, x64, xs, ls, amp, nug, False), None)
         for fam in OPS_PER_ENTRY:
             out[f"K5 {fam} {tag} ({fi})"] = (
                 fam, "gram_vjp_x", lambda lib, fam=fam: raw_vjp_x(
-                    lib, F[0], F[1], *F[2:5], F[5], fam))
+                    lib, F[0], F[1], *F[2:5], F[5], fam), x_plain)
         return out
 
     result = {}
     for dt in (f64, torch.float32):
         tag = "f64" if dt == f64 else "f32"
-        for label, (fam, kind, make) in cases_of(dt).items():
+        for label, (fam, kind, make, plain) in cases_of(dt).items():
             entry = f"lcgp_{fam}_{kind}_{tag}"
             if not has_entry(libs["other"], entry):
                 say(f"  {label}: {root} has no {entry}; left out")
@@ -3339,42 +3472,56 @@ def phase_against(dev, xs, x0s, root, free_np):
                 f"{root}: {other_ms:.4f} ms ({o1:.4f}/{o2:.4f}), ratio "
                 f"{this_ms / other_ms:.4f}; outputs the same bits: {same} "
                 f"(max abs diff {diff:.3e})")
-            if fam != "matern52":
+            if (fam, kind) in AGAINST_REDESIGNED:
+                first = [o.clone() for o in fns["this"].outputs]
+                fns["this"]()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in
+                          zip(first, fns["this"].outputs)),
+                      f"{label}: two launches give different bits")
+                result[label]["max_abs_err_vs_plain"] = plain(
+                    first, label, family_of(fam))
+                say(f"  {label}: two launches give the same bits")
+            else:
                 check(same, f"{label}: this checkout's output differs from "
                       f"{root}'s")
             del fns
             torch.cuda.empty_cache()
     ext = {}
     if has_entry(libs["other"], "lcgp_matern52_gram_f64"):
-        ext["gram_fitted_max_rel_err"] = k3_gram_extended_errors(libs, xs,
-                                                                 free_np)
-        # the fused VJP's component 0 against extended precision
-        ref = vjp_extended(xs, ls, amp, nug, 0, M, 0.5 * rs, -0.5, w,
-                           kind="matern52")
-        scale = family_of("matern52").scale(
-            xs, xs, ls[:1], amp[:1], nug[:1], same=True,
-            cbar=(0.5 * rs[:1, None, None] * M[:1]
-                  - 0.5 * w[:1, :, None] * w[:1, None, :]))
-        shares = {}
-        for key, lib in libs.items():
-            fn = raw_vjp(lib, xs, ls, amp, nug, M, 0.5 * rs, -0.5, w,
-                         family="matern52")
-            fn()
-            torch.cuda.synchronize()
-            share = 0.0
-            for g, e, s in zip(fn.outputs, ref, scale):
-                got = g[0].cpu().numpy().astype(np.longdouble)
-                e = np.asarray(e, dtype=np.longdouble)
-                sk = s[0].cpu().numpy().astype(np.longdouble)
-                share = max(share, float(np.max(np.abs(got - e) / sk)))
-            shares[key] = share
-        say(f"  K3 VJP f64 fused, component 0 vs extended precision: err / "
-            f"magnitude this {shares['this']:.3e}, other "
+        ext["k3_gram_fitted_max_rel_err"] = k3_gram_extended_errors(
+            libs, xs, free_np)
+    # the fused VJPs' component 0 against extended precision
+    for kind in ("matern52", "rbf"):
+        if not has_entry(libs["other"], f"lcgp_{kind}_gram_vjp_f64"):
+            continue
+        shares = vjp_extended_shares(libs, kind, xs, ls, amp, nug, M,
+                                     0.5 * rs, w, [0])
+        label = family_of(kind).label
+        say(f"  {label} VJP f64 fused, component 0 vs extended precision: "
+            f"err / magnitude this {shares['this']:.3e}, other "
             f"{shares['other']:.3e} (bound {VJP_BOUND:g})")
-        check(shares["this"] <= VJP_BOUND, "K3's VJP outside its bound of "
-              "the extended-precision sums")
-        ext["vjp_fused_err_per_magnitude"] = shares
-    return {"kernels_ms": result, "k3_extended": ext}
+        check(shares["this"] <= VJP_BOUND, f"{label}'s VJP outside its "
+              "bound of the extended-precision sums")
+        ext[f"{kind}_vjp_fused_err_per_magnitude"] = shares
+    # K4's fused VJP at the fitted config-4 parameters, where lengthscales
+    # sit at the 1e-6 floor and the decay underflows for most pairs: finite,
+    # and the components at the floor against extended precision
+    if has_entry(libs["other"], "lcgp_rbf_gram_vjp_f64"):
+        lsF, ampF, _, nugF = P.constrain(free_params_from_numpy(*free_np,
+                                                                dev))
+        ks = [k for k in range(lsF.shape[0]) if float(lsF[k].min()) <= 1e-5]
+        shares = vjp_extended_shares(libs, "rbf", xs, lsF.contiguous(),
+                                     ampF.contiguous(), nugF.contiguous(),
+                                     M, 0.5 * rs, w, ks)
+        say(f"  K4 VJP f64 fused at the fitted parameters, components {ks} "
+            f"(lengthscales at the 1e-6 floor) vs extended precision: err / "
+            f"magnitude this {shares['this']:.3e}, other "
+            f"{shares['other']:.3e} (bound {VJP_BOUND:g}); outputs finite")
+        check(shares["this"] <= VJP_BOUND, "K4's VJP at the fitted "
+              "parameters outside its bound of the extended-precision sums")
+        ext["rbf_vjp_fused_fitted_err_per_magnitude"] = shares
+    return {"kernels_ms": result, "extended": ext}
 
 
 def main() -> int:
@@ -3384,9 +3531,9 @@ def main() -> int:
     ap.add_argument("--against", metavar="DIR",
                     help="only time the kernels of this checkout against "
                          "those of the checkout at DIR, in turns, and "
-                         "compare their outputs bit for bit (K3's against "
-                         "extended precision; a kernel DIR lacks is left "
-                         "out)")
+                         "compare their outputs bit for bit (K4's VJP and "
+                         "K5 against their plain versions and extended "
+                         "precision; a kernel DIR lacks is left out)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3465,8 +3612,7 @@ def main() -> int:
         rec["launches_per_eval"] = calls_f32["fast_loss_grad"][i]
         rec["launches_per_call"] = {k: v[i] for k, v in calls_f32.items()}
         rec["registers"] = registers_of(
-            registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
-            "Matern32", "float")
+            registers, KERNEL_TEMPLATES["matern32"][i], "Matern32", "float")
 
     say("  launches per call (K1, K2): " + ", ".join(
         f"{k} {v}" for k, v in per_call.items()))
@@ -3482,8 +3628,7 @@ def main() -> int:
         rec["launches_per_eval"] = per_call["loss_grad"][i]
         rec["launches_per_call"] = {k: v[i] for k, v in per_call.items()}
         rec["registers"] = registers_of(
-            registers, ("gram_kernel", "gram_vjp_partials_kernel")[i],
-            "Matern32")
+            registers, KERNEL_TEMPLATES["matern32"][i], "Matern32")
     records = [record, record_vjp, rec_k1_f32, rec_k2_f32]
     for rec in records:
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -3497,8 +3642,8 @@ def main() -> int:
 
     say("[11] the FITC inducing-point path at benchmarks/run_configs.py's "
         "configs 6-8 (n=50,000, 400,000 and 2,000,000, d=2, p=20, q=4, "
-        "m=256 and 512): K1, K2 and K5 against their plain versions at "
-        "config 6's shapes, then the main path")
+        "m=256 and 512): K1, K2, K4 and K5 against their plain versions "
+        "at config 6's shapes, then the main path")
     records += phase_fitc(dev, registers)
 
     say(json.dumps({"kernels": records}))

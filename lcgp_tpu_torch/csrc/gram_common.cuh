@@ -1,8 +1,9 @@
 // Device code shared by the Gram kernels (gram_kernel.cuh: K1 and K4's
 // forward; matern52_gram_kernel.cuh: K3's) and the Gram-VJP kernels
-// (gram_vjp_kernel.cuh, matern52_gram_vjp_kernel.cuh, gram_vjp_x_kernel.cuh):
-// explicitly rounded arithmetic, the raw distance, the three kernel families
-// as policies, and the triangle walk over tiles.
+// (gram_vjp_kernel.cuh: K2; matern52_gram_vjp_kernel.cuh: K3's and K4's;
+// gram_vjp_x_kernel.cuh: K5): explicitly rounded arithmetic, the raw
+// distance, the three kernel families as policies, and the triangle walk
+// over tiles.
 //
 // Every family is separable in the scaled distances
 //
@@ -14,15 +15,23 @@
 //   Matern52: C0 = prod_t (1 + sqrt5 S_t + 5/3 S_t^2)    * exp(-sqrt5 sum_t S_t)
 //   SE:       C0 =                                          exp(-1/2 sum_t S_t^2)
 //
-// A policy supplies the three things that differ: the factor (grow: prod
-// times the factor, one rounding through an fma), the decay (accum, decay),
-// and the VJP's lengthscale term, cbar C0 dlnC0/dlnS_t without a division
-// (lens_term, from the prefix product of the factors below t and the suffix
-// product started at cbar * decay above t; lens_sum applies a constant
-// factor of the term once to the reduced sum), and the VJP with respect to
-// the points' position term, cbar C0 g(S_t) with dC0/dS_t = -C0 g(S_t)
-// (x_term, the same products without the last factor of S_t, so that it is
-// 0 at S_t = 0 and divides by nothing; lens_sum applies its constant too).
+// A policy supplies what differs: the factor (grow: prod times the factor,
+// one rounding through an fma; kFactor false where there is none), the
+// decay (accum, decay), and the two VJPs' per-dimension terms, formed
+// without a division from the prefix product of the factors below t and a
+// suffix product started at the cotangent times the decay:
+//
+// - the lengthscale term cbar C0 dlnC0/dlnS_t: K2's lens_term (the suffix
+//   recomputes each factor), or lens_step (the factor's product Q_t and its
+//   step G_t = f_t - 1 kept, so that the suffix sweep is two fmas a
+//   dimension; K3's VJP).  SE's VJP (K4's, matern52_gram_vjp_kernel.cuh)
+//   forms its term cbar e S_t^2 from the raw differences itself;
+// - the position term M C0 g(S_t) sign(x1 - x2), dC0/dS_t = -C0 g(S_t):
+//   x_step (K5), from the signed scaled difference, so that it is 0 at
+//   S_t = 0 and needs no sign test;
+//
+// and lens_sum, a constant factor of both terms applied once to a reduced
+// sum.
 //
 // Both kernels of a family form C0 with these functions, and every step is
 // an explicitly rounded operation (__dmul_rn, __dadd_rn, fma), so the
@@ -76,6 +85,7 @@ constexpr double FIVE_THIRDS = 0x1.aaaaaaaaaaaabp+0;
 // Matern 3/2: factor 1 + S, decay exp(-sum S), lengthscale term
 // cbar C0 S^2 / (1 + S).
 struct Matern32 {
+  static constexpr bool kFactor = true;
   static constexpr bool kGuardUnderflow = false;
   // the forward's blocks per SM: its registers at 256 threads a block
   static constexpr int fwd_min_blocks(int maxd) { return maxd <= 8 ? 3 : 2; }
@@ -86,6 +96,11 @@ struct Matern32 {
   template <typename T>
   static __device__ __forceinline__ T accum(T ssum, T s) {
     return add_rn(ssum, s);
+  }
+  // accum(0, s), exactly (S is never -0), without the addition
+  template <typename T>
+  static __device__ __forceinline__ T accum0(T s) {
+    return s;
   }
   template <typename T>
   static __device__ __forceinline__ T decay(T ssum) {
@@ -100,10 +115,14 @@ struct Matern32 {
   static __device__ __forceinline__ T lens_term(T pre, T suf, T s) {
     return (pre * suf) * s * s;
   }
-  // g = S / (1 + S): cbar C0 g = (cbar e prod_{u>t}) (prod_{u<t}) S_t
+  // g = S / (1 + S): M C0 g sign = (M e prod_{u>t}) (prod_{u<t}) sd, with
+  // sd the signed S; G = f - 1 = S
   template <typename T>
-  static __device__ __forceinline__ T x_term(T pre, T suf, T s) {
-    return (pre * suf) * s;
+  static __device__ __forceinline__ void x_step(T sd, T s, T& prod, T& Q,
+                                                T& G) {
+    Q = prod * sd;
+    G = s;
+    prod = fma_rn(prod, s, prod);
   }
   static __device__ __forceinline__ double lens_sum(double g) { return g; }
 };
@@ -113,6 +132,7 @@ struct Matern32 {
 // In f32 the product overflows where the decay has underflowed to 0 (it
 // never does before: ln(factor) <= sqrt5 S), so C0 is 0 there, not inf * 0.
 struct Matern52 {
+  static constexpr bool kFactor = true;
   static constexpr bool kGuardUnderflow = true;
   template <typename T>
   static __device__ __forceinline__ T grow(T prod, T s) {
@@ -123,6 +143,11 @@ struct Matern52 {
   static __device__ __forceinline__ T accum(T ssum, T s) {
     return add_rn(ssum, s);
   }
+  // accum(0, s), exactly (S is never -0), without the addition
+  template <typename T>
+  static __device__ __forceinline__ T accum0(T s) {
+    return s;
+  }
   template <typename T>
   static __device__ __forceinline__ T decay(T ssum) {
     return exp_t(mul_rn(T(-SQRT5), ssum));
@@ -131,25 +156,40 @@ struct Matern52 {
   static __device__ __forceinline__ T c0(T prod, T e) {
     return e == T(0) ? T(0) : mul_rn(prod, e);
   }
-  // (its lengthscale term, (cbar e prod_{u>t}) (prod_{u<t}) S_t^2
-  // (1 + sqrt5 S_t), is formed in K3's own VJP, matern52_gram_vjp_kernel.cuh;
-  // 5/3 goes once on the sum, lens_sum)
-  // g = 5/3 S (1 + sqrt5 S) / factor: the products times S_t (1 + sqrt5 S_t),
+  // The lengthscale term's sweep: Q = (prod_{u<t} f_u) S^2 (1 + sqrt5 S),
+  // G = f - 1 (the factor as grow forms it, once), and prod grown by f; the
+  // term is (cbar e prod_{u>t} f_u) Q, and 5/3 goes once on the sum
+  // (lens_sum)
+  template <typename T>
+  static __device__ __forceinline__ void lens_step(T s, T& prod, T& Q,
+                                                   T& G) {
+    const T gt = mul_rn(fma_rn(T(FIVE_THIRDS), s, T(SQRT5)), s);
+    const T hs = fma_rn(T(SQRT5), s, T(1));
+    Q = prod * ((s * s) * hs);
+    G = gt;
+    prod = fma_rn(prod, gt, prod);
+  }
+  // g = 5/3 S (1 + sqrt5 S) / factor: the products times sd (1 + sqrt5 S),
   // and 5/3 once on the sum
   template <typename T>
-  static __device__ __forceinline__ T x_term(T pre, T suf, T s) {
-    const T h = fma_rn(T(SQRT5), s, T(1));
-    return (pre * suf) * (s * h);
+  static __device__ __forceinline__ void x_step(T sd, T s, T& prod, T& Q,
+                                                T& G) {
+    const T gt = mul_rn(fma_rn(T(FIVE_THIRDS), s, T(SQRT5)), s);
+    const T hs = fma_rn(T(SQRT5), s, T(1));
+    Q = prod * (sd * hs);
+    G = gt;
+    prod = fma_rn(prod, gt, prod);
   }
   static __device__ __forceinline__ double lens_sum(double g) {
     return FIVE_THIRDS * g;
   }
 };
 
-// Squared exponential: no factor (prod stays 1, the prefix and suffix
-// products are dead code), decay exp(-1/2 sum S^2), lengthscale term
-// cbar C0 S^2.
+// Squared exponential: no factor (prod stays 1, and there are no prefix or
+// suffix products), decay exp(-1/2 sum S^2), lengthscale term cbar C0 S^2,
+// position term M C0 sd.
 struct SE {
+  static constexpr bool kFactor = false;
   static constexpr bool kGuardUnderflow = false;
   // f32 at MAXD 16 needs more registers than 2 blocks leave
   static constexpr int fwd_min_blocks(int maxd) { return maxd <= 8 ? 3 : 1; }
@@ -162,6 +202,10 @@ struct SE {
     return fma_rn(s, s, ssum);
   }
   template <typename T>
+  static __device__ __forceinline__ T accum0(T s) {
+    return mul_rn(s, s);
+  }
+  template <typename T>
   static __device__ __forceinline__ T decay(T ssum) {
     return exp_t(mul_rn(T(-0.5), ssum));
   }
@@ -169,14 +213,10 @@ struct SE {
   static __device__ __forceinline__ T c0(T, T e) {
     return e;
   }
+  // g = S: the term is (M e) sd
   template <typename T>
-  static __device__ __forceinline__ T lens_term(T, T suf, T s) {
-    return suf * (s * s);
-  }
-  // g = S
-  template <typename T>
-  static __device__ __forceinline__ T x_term(T, T suf, T s) {
-    return suf * s;
+  static __device__ __forceinline__ void x_step(T sd, T, T&, T& Q, T&) {
+    Q = sd;
   }
   static __device__ __forceinline__ double lens_sum(double g) { return g; }
 };

@@ -1,8 +1,8 @@
-// The Gram-stack VJP for Hopper (sm_90a), one template for two kernel
-// families (gram_common.cuh's policies): K2 (matern32_gram_vjp.cu) and K4's
-// VJP (rbf_gram_vjp.cu) are its instantiations.  K3's VJP has its own
-// template (matern52_gram_vjp_kernel.cuh), and shares this file's finish
-// kernel, scratch layout and tile walk.
+// K2's Gram-stack VJP for Hopper (sm_90a): this template instantiated on
+// gram_common.cuh's Matern32 policy (matern32_gram_vjp.cu).  K3's and K4's
+// VJPs have their own template (matern52_gram_vjp_kernel.cuh), and share
+// this file's finish kernel (gram_vjp_finish_kernel, with the policy's
+// lens_sum), scratch layout, tile walk and warp_sum.
 //
 // It reads the cotangent of the Gram stack as
 //
@@ -17,10 +17,9 @@
 //   G1[k]    = sum_i cbar[k,i,i]                      (same-point only)
 //   G2+t[k]  = sum cbar * C0 * dlnC0/dlnS_t,          t = 0..d-1
 //
-// (Matern 3/2: S_t^2 / (1 + S_t); Matern 5/2: 5/3 S_t^2 (1 + sqrt5 S_t) /
-// (1 + sqrt5 S_t + 5/3 S_t^2); SE: S_t^2) and an epilogue turns them into
-// the gradients of amp, nug and the lengthscales, as
-// lcgp_tpu/ops/matern.py:126-147 does for every family:
+// (Matern 3/2: S_t^2 / (1 + S_t)) and an epilogue turns them into the
+// gradients of amp, nug and the lengthscales, as
+// lcgp_tpu/ops/matern.py:126-147 does:
 //
 //   gamp  = (1 - eta) G0 + eta G1
 //   gnug  = amp (G1 - G0) / (1 + nug)^2
@@ -37,10 +36,10 @@
 // registers.
 //
 // What bounds it on the card: f64 arithmetic, with the read of M just under
-// it.  Each entry and component costs about 8d + 20 f64 instructions for
-// Matern 3/2 (84 at d = 8) and 5d + 21 for SE; over
-// one triangle of (20, 4096, 4096) Matern 3/2 is 0.83 ms at the f64 peak of
-// 17e12 instructions/s, and reading M once is 2.7 GB, 0.80 ms at 3.35 TB/s.
+// it.  Each entry and component costs about 8d + 20 f64 instructions (84 at
+// d = 8); over one triangle of (20, 4096, 4096) that is 0.83 ms at the f64
+// peak of 17e12 instructions/s, and reading M once is 2.7 GB, 0.80 ms at
+// 3.35 TB/s.
 // The design:
 //
 // - One triangle when same.  The summand f_ij is symmetric, so
@@ -84,6 +83,7 @@
 
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "gram_common.cuh"
 
 namespace {
@@ -124,25 +124,6 @@ inline long long vjp_tiles(int n) { return (n + TT - 1) / TT; }
 inline long long vjp_block_count(int same, int n1, int n2) {
   return same ? vjp_tiles(n1) * (vjp_tiles(n1) + 1) / 2
               : vjp_tiles(n1) * vjp_tiles(n2);
-}
-
-// Copies one element of T from global to shared memory, asynchronously;
-// writes zero, reading nothing, when !valid.
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"((int)sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -275,9 +256,6 @@ gram_vjp_partials_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
       const T e = P::decay(ssum);
       acc[0] += (double)(cb * P::c0(prod, e));
       acc[1] += on_diag ? (double)cb : 0.0;
-      // C0 == 0: every lengthscale term is 0, and a prefix product may
-      // have overflowed (Matern 5/2 in f32)
-      if (P::kGuardUnderflow && e == T(0)) continue;
       T suf = cb * e;   // cbar decay prod_{u > t} f_u
 #pragma unroll
       for (int t = MAXD - 1; t >= 0; --t) {

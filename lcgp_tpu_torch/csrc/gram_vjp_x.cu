@@ -15,16 +15,17 @@
       const void* x1, const void* x2, const void* inv_l, const void* amp,    \
       const void* nug, const void* M, int q, int n1, int n2, int d,          \
       void* partials, void* gx, void* stream) {                              \
-    return vjpx_launch<lcgp::policy, T>(x1, x2, inv_l, amp, nug, M, q, n1,   \
-                                        n2, d, partials, gx, stream);        \
+    return k5::launch<lcgp::policy, T>(x1, x2, inv_l, amp, nug, M, q, n1,    \
+                                       n2, d, partials, gx, stream);         \
   }
 
 extern "C" {
 
 // Number of f64 scratch entries the caller allocates for the partial sums:
-// n2 * d per block of 128 rows of x1, for every family and dtype.
+// one per output (n2 * d) and block of its column of blocks, for every
+// family and dtype.
 long long lcgp_gram_vjp_x_scratch(int n1, int n2, int d) {
-  return vjpx_row_blocks(n1) * n2 * d;
+  return (long long)k5::row_blocks<double>(n1, n2, d) * n2 * d;
 }
 
 LCGP_VJP_X_ENTRY(matern32, Matern32, f64, double)

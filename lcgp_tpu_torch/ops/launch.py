@@ -1,11 +1,13 @@
 """The kernel families and the launches of their hand-written Gram and
 Gram-VJP kernels, one code path for all of them.
 
-``csrc/gram_kernel.cuh`` (the Gram stack / factor target),
-``csrc/gram_vjp_kernel.cuh`` (its VJP in the parameters) and
-``csrc/gram_vjp_x_kernel.cuh`` (its VJP in the points of x2, K5) are
-instantiated per family on a policy of ``csrc/gram_common.cuh``: K1/K2 for
-Matérn 3/2, K3 for Matérn 5/2 and K4 for the squared exponential.  Their C
+Every kernel instantiates a template on a family's policy of
+``csrc/gram_common.cuh``: K1/K2 for Matérn 3/2, K3 for Matérn 5/2 and K4
+for the squared exponential.  The Gram stack / factor target is
+``csrc/gram_kernel.cuh`` (K1, K4) or ``csrc/matern52_gram_kernel.cuh``
+(K3); its VJP in the parameters ``csrc/gram_vjp_kernel.cuh`` (K2) or
+``csrc/matern52_gram_vjp_kernel.cuh`` (K3, K4); its VJP in the points of
+x2, K5, ``csrc/gram_vjp_x_kernel.cuh`` for every family.  Their C
 entry points ``lcgp_<family>_gram_{f64,f32}``,
 ``lcgp_<family>_gram_vjp_{f64,f32}`` and
 ``lcgp_<family>_gram_vjp_x_{f64,f32}`` take the same arguments in every

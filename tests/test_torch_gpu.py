@@ -1152,3 +1152,214 @@ def test_k3_f32_underflow_gives_zero_c0_and_finite_gradients(dev):
     for g in (glens, gamp, gnug):
         assert bool(torch.isfinite(g).all())
     assert bool((glens == 0).all()) and bool((gamp == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# K4's VJP on K3's VJP template (csrc/matern52_gram_vjp_kernel.cuh on the SE
+# policy: tensor-copy loads into a ring behind mbarriers, 64-tiles in
+# 32-row stages, element-wise cp.async where M's rows are not 16-byte
+# aligned), and K5 (csrc/gram_vjp_x_kernel.cuh: a persistent column
+# reduction over 32 x 64 panels of M): the edges of those designs
+# ---------------------------------------------------------------------------
+
+
+def _misaligned(t):
+    """A copy of ``t`` one element past a 16-byte aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('n', [31, 32, 33, 63, 64, 65, 4097])
+def test_k4_vjp_fused_at_tile_and_stage_edges_is_deterministic(dev, dtype,
+                                                               n):
+    """The fused cotangent at n around K4's VJP stage (32) and tile (64),
+    and one past config 4's 4096: two launches give the same bits, within
+    the bound of the f64 plain VJP.  Odd n loads M element-wise (the path
+    without tensor copies)."""
+    x, _, ls, amp, nug = _inputs(dev, 900 + n, n, 1, 8, 3)
+    rng = np.random.default_rng(900 + n)
+    M = torch.as_tensor(rng.standard_normal((3, n, n)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((3, n)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, 3), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x, ls, amp, nug, M, alpha, w)]
+    before = TR.rbf_gram_vjp.launches
+    runs = [TR.rbf_gram_vjp_fused(*cast[:4], M=cast[4], alpha=cast[5],
+                                  beta=-0.5, w=cast[6]) for _ in range(2)]
+    assert TR.rbf_gram_vjp.launches == before + 2
+    ref = TR.rbf_gram_vjp_fused_plain(x, ls, amp, nug, M=M, alpha=alpha,
+                                      beta=-0.5, w=w)
+    scale = TR.rbf_gram_vjp_scale(x, x, ls, amp, nug, same=True,
+                                  cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+    _assert_vjp_close(runs[0], ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('d', [1, 2, 3, 8, 9, 17, 32])
+@pytest.mark.parametrize('same', [True, False])
+def test_k4_vjp_at_every_maxd(dev, d, same):
+    """Every MAXD instantiation (2, 4, 8, 16, 32) of K4's VJP, at d on both
+    sides of each bound, at a generic cotangent against the plain VJP."""
+    x1, x2, ls, amp, nug = _inputs(dev, 950 + d, 97, 70, d, 3)
+    if same:
+        x2 = x1
+    cbar = torch.as_tensor(np.random.default_rng(d).standard_normal(
+        (3, 97, x2.shape[0])), device=dev)
+    got = TR.launch_rbf_vjp(x1, x2, ls, amp, nug, same=same, M=cbar)
+    ref = TR.rbf_gram_vjp_plain(x1, x2, ls, amp, nug, same=same, cbar=cbar)
+    scale = TR.rbf_gram_vjp_scale(x1, x2, ls, amp, nug, same=same,
+                                  cbar=cbar)
+    torch.cuda.synchronize()
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[torch.float64])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('same,n1,n2', [(True, 128, 128), (False, 130, 76),
+                                        (False, 64, 256)])
+def test_k4_vjp_misaligned_cotangent_gives_the_aligned_bits(dev, dtype,
+                                                            same, n1, n2):
+    """An M one element past an aligned start takes the path without
+    tensor copies: the aligned M's bits, within the plain VJP's bound."""
+    x1, x2, ls, amp, nug = _inputs(dev, 960 + n2, n1, n2, 5, 4)
+    if same:
+        x2 = x1
+    cbar = torch.as_tensor(np.random.default_rng(n2).standard_normal(
+        (4, n1, n2)), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x1, x2, ls, amp, nug)]
+    Mc = cbar.to(dtype).contiguous()
+    got = TR.launch_rbf_vjp(*cast, same=same, M=Mc)
+    again = TR.launch_rbf_vjp(*cast, same=same, M=_misaligned(Mc))
+    ref = TR.rbf_gram_vjp_plain(x1, x2, ls, amp, nug, same=same, cbar=cbar)
+    scale = TR.rbf_gram_vjp_scale(x1, x2, ls, amp, nug, same=same,
+                                  cbar=cbar)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _assert_vjp_close(got, ref, scale, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('d', [1, 8])
+def test_k4_vjp_where_the_decay_underflows_matches_plain(dev, dtype, d):
+    """Lengthscales so short that the decay's argument runs from 0 past
+    -745 (most pairs 0, some subnormal): the lean loop's exp (its table,
+    its two-step scaling below -708.4 and its 0 below -745.2) and the
+    general loop's exp give finite sums within the plain f64 VJP's bound,
+    fused and at a random same-point cotangent."""
+    n, q = 320, 3
+    rng = np.random.default_rng(940 + d)
+    x = torch.as_tensor(rng.uniform(0, 1.5, (n, d)), device=dev)
+    ls = torch.as_tensor(np.full((q, d), 0.03 * np.sqrt(d)), device=dev)
+    amp = torch.as_tensor(rng.uniform(0.5, 3.0, q), device=dev)
+    nug = torch.as_tensor(rng.uniform(1e-6, 0.1, q), device=dev)
+    M = torch.as_tensor(rng.standard_normal((q, n, n)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((q, n)), device=dev)
+    alpha = torch.as_tensor(rng.uniform(0.1, 5.0, q), device=dev)
+    cast = [t.to(dtype).contiguous() for t in (x, ls, amp, nug, M, alpha, w)]
+    fused = TR.rbf_gram_vjp_fused(*cast[:4], M=cast[4], alpha=cast[5],
+                                  beta=-0.5, w=cast[6])
+    generic = TR.launch_rbf_vjp(cast[0], *cast[:4], same=True, M=cast[4])
+    ref_f = TR.rbf_gram_vjp_fused_plain(x, ls, amp, nug, M=M, alpha=alpha,
+                                        beta=-0.5, w=w)
+    ref_g = TR.rbf_gram_vjp_plain(x, x, ls, amp, nug, same=True, cbar=M)
+    sc_f = TR.rbf_gram_vjp_scale(x, x, ls, amp, nug, same=True,
+                                 cbar=TM.fused_cotangent(M, alpha, -0.5, w))
+    sc_g = TR.rbf_gram_vjp_scale(x, x, ls, amp, nug, same=True, cbar=M)
+    torch.cuda.synchronize()
+    _assert_vjp_close(fused, ref_f, sc_f, VJP_BOUND[dtype])
+    _assert_vjp_close(generic, ref_g, sc_g, VJP_BOUND[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_k4_vjp_nan_cotangent_gives_nan(dev, dtype):
+    x, _, ls, amp, nug = (t.to(dtype) for t in _inputs(dev, 970, 96, 1, 4, 2))
+    M = torch.full((2, 96, 96), float('nan'), dtype=dtype, device=dev)
+    out = TR.launch_rbf_vjp(x, x, ls, amp, nug, same=True, M=M)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isnan(g).all()) for g in out)
+
+
+def _k5_check(fam, x1, x2, ls, amp, nug, M):
+    """K5 twice on (x1, x2, M): the same bits, within VJP_BOUND of the
+    magnitude of each entry's terms of the f64 plain version; returns the
+    output."""
+    dtype = x1.dtype
+    before = fam.vjp_x.launches
+    got = fam.vjp_x(x1, x2, ls, amp, nug, M=M)
+    again = fam.vjp_x(x1, x2, ls, amp, nug, M=M)
+    args = [t.double() for t in (x1, x2, ls, amp, nug)]
+    ref = fam.vjp_x_plain(*args, M=M.double())
+    scale = fam.scale_x(*args, M=M.double())
+    torch.cuda.synchronize()
+    assert fam.vjp_x.launches == before + 2
+    assert got.shape == (x2.shape[0], x1.shape[1]) and got.dtype == dtype
+    assert torch.equal(got, again)
+    err = (got.double() - ref).abs()
+    assert bool((err <= VJP_BOUND[dtype] * scale).all()), float(err.max())
+    return got
+
+
+@pytest.mark.parametrize('kind', FAMILY_KINDS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('q,n1,n2,d', [(2, 700, 512, 2), (2, 300, 1024, 2),
+                                       (3, 20, 256, 2), (2, 5, 77, 3),
+                                       (2, 200, 96, 17), (2, 150, 64, 32)])
+def test_k5_at_wide_short_and_deep_shapes(dev, kind, dtype, q, n1, n2, d):
+    """K5 at m = 512 and 1024 (more columns than a block has threads), at
+    n1 below one 32-row panel (20, and 5 with a ragged m), and at d = 17
+    and 32, with coincident points."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    x1, x2, ls, amp, nug = _inputs(dev, 980 + d, n1, n2, d, q, dtype)
+    x2[:3] = x1[:3]
+    M = torch.randn((q, n1, n2), generator=torch.Generator(
+        device=dev).manual_seed(n2), dtype=dtype, device=dev)
+    _k5_check(FAMILIES[kind], x1, x2, ls, amp, nug, M)
+
+
+@pytest.mark.parametrize('kind', FAMILY_KINDS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_k5_on_kmm_with_coincident_points(dev, kind, dtype):
+    """Kmm's square shape, (q, m, m) with x1 = x2 = z and ten repeated
+    points, in x2 and (through the transposed cotangent, as GramFn makes
+    it) in x1; with a diagonal cotangent every term has S = 0, so K5
+    gives exactly 0."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES[kind]
+    z, _, ls, amp, nug = _inputs(dev, 990, 256, 1, 2, 4, dtype)
+    z[100:110] = z[:10]
+    M = torch.randn((4, 256, 256), generator=torch.Generator(
+        device=dev).manual_seed(990), dtype=dtype, device=dev)
+    _k5_check(fam, z, z, ls, amp, nug, M)
+    _k5_check(fam, z, z, ls, amp, nug, M.mT.contiguous())
+    eye = torch.eye(256, dtype=dtype, device=dev).expand(4, 256, 256)
+    out = fam.vjp_x(z, z, ls, amp, nug, M=eye.contiguous())
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize('kind', FAMILY_KINDS)
+def test_k5_nan_cotangent_gives_nan(dev, kind):
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    x1, x2, ls, amp, nug = _inputs(dev, 995, 300, 128, 2, 3)
+    M = torch.full((3, 300, 128), float('nan'), dtype=torch.float64,
+                   device=dev)
+    out = FAMILIES[kind].vjp_x(x1, x2, ls, amp, nug, M=M)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_k5_misaligned_cotangent_gives_the_aligned_bits(dev, dtype):
+    """An M one element past an aligned start takes the path without
+    tensor copies: the same bits as the aligned launch."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES['matern52']
+    x1, x2, ls, amp, nug = _inputs(dev, 997, 1000, 256, 2, 4, dtype)
+    M = torch.randn((4, 1000, 256), generator=torch.Generator(
+        device=dev).manual_seed(997), dtype=dtype, device=dev)
+    got = _k5_check(fam, x1, x2, ls, amp, nug, M)
+    again = fam.vjp_x(x1, x2, ls, amp, nug, M=_misaligned(M))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)

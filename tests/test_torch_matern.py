@@ -192,7 +192,9 @@ def test_vjp_pairwise_triangle_sum_matches_jax(cotangent):
                                     'gram_vjp_kernel.cuh',
                                     'matern32_gram.cu', 'rbf_gram_vjp.cu',
                                     'matern52_gram_kernel.cuh',
-                                    'matern52_gram_vjp_kernel.cuh'])
+                                    'matern52_gram_vjp_kernel.cuh',
+                                    'gram_vjp_x_kernel.cuh',
+                                    'async_copy.cuh', 'tensor_map.cuh'])
 def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch,
                                                edited):
     # every kernel is an instantiation of templates in shared headers:
