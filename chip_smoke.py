@@ -104,7 +104,26 @@ Phases, each printing its own lines:
    un-chunked) and config 8 (n=2,000,000, m=512, n_chunk automatic:
    32768, 62 blocks): construction, one timed loss+grad with its launches
    and peak memory (config 8 under a quarter of the un-chunked panels'
-   4 q n m itemsize), the aux and a 500-point predict.
+   4 q n m itemsize), the aux and a 500-point predict;
+12. the prediction server (lcgp_tpu_torch/serve.py) with every count set
+   to 0: a PredictServer over phase 5's config-4 model at batch 256 (one
+   CUDA-graph capture, timed), 64-, 256- and 300-point requests against
+   model.predict (rtol 1e-10), one replay against the eager fused step
+   (1e-12 of each output's largest entry), K1 in a profiled replay, the
+   device time of a dispatch; single-client 64-point latency (p50, p95 of
+   50) through the graph, the eager step and model.predict, at batch 256
+   and 64; 8 concurrent clients of serve_concurrency.py's sizes for 5
+   rounds (every answer against model.predict, fewer dispatches than
+   chunks); a same-shape reload under a firing client (reused, no
+   capture, every answer wholly the old or the new model's, the peak
+   memory with both states alive), then a kernel='rbf' reload (a new
+   capture, K4 in a profiled replay); fullcov through a server at batch 8
+   (rtol 1e-8) and a rep model's refused; phase 11's config-6 'fast'
+   FITC model served (500 points, rtol 1e-6; K1 at Knm in a replay);
+   HTTP on 127.0.0.1 (/healthz, /info, a 64-point /predict equal to the
+   in-process answer, /reload 403, an 8-point fullcov /predict) and
+   shutdown() joining each dispatcher.  Every line of numbers carries the
+   card's name and power limit.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -2971,7 +2990,8 @@ def phase_fitc_config6(dev):
     kernel family; then the 'fast' model as lcgp_tpu ran it: one timed
     loss+grad, fit(method='adam', steps=200), 500 held-out predictions
     against lcgp_tpu's recorded accuracy, and refine_inducing(steps=20),
-    which must launch K5 and not raise the loss.  Returns timings."""
+    which must launch K5 and not raise the loss.  Returns the timings and
+    the refined 'fast' model, which phase 12 serves."""
     import torch
     from lcgp_tpu_torch import LCGP
     x, y, xte, ytrue, kw = fitc_config(6)
@@ -3070,9 +3090,7 @@ def phase_fitc_config6(dev):
     check(k5 == 3 * REFINE_STEPS, f"refine_inducing launched K5 {k5} times")
     check(l1 <= l0, "refine_inducing raised the loss")
     out["refine_rmse"] = met["rmse"]
-    del m
-    torch.cuda.empty_cache()
-    return out
+    return out, m
 
 
 def phase_fitc_scale(dev, idx):
@@ -3147,7 +3165,7 @@ def phase_fitc(dev, registers):
     at config 6's shapes (part 1), then the main path with every count set
     to 0 just before it and read just after: the card against the CPU at a
     small cut (part 2), config 6 (part 3), config 7 and config 8 (parts 4
-    and 5).  Returns the kernel records."""
+    and 5).  Returns the kernel records and config 6's 'fast' model."""
     import torch
     from lcgp_tpu_torch.models.sparse import select_inducing
     x, _, _, _, kw = fitc_config(6)
@@ -3165,7 +3183,8 @@ def phase_fitc(dev, registers):
     x, y, _, _, _ = fitc_config(6)
     phase_fitc_cut(dev, x, y)
     say("  -- config 6 (n=50,000, d=2, p=20, q=4, m=256)")
-    timings = {"config6": phase_fitc_config6(dev)}
+    timings = {}
+    timings["config6"], m6 = phase_fitc_config6(dev)
     for idx in (7, 8):
         say(f"  -- config {idx}")
         timings[f"config{idx}"] = phase_fitc_scale(dev, idx)
@@ -3186,7 +3205,461 @@ def phase_fitc(dev, registers):
                                         family_of(kind).policy,
                                         "float" if f32 else "double")
     records[0]["model"] = timings
-    return records
+    return records, m6
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the prediction server (lcgp_tpu_torch/serve.py) on captured CUDA
+# graphs at config 4, FITC config 6 and over HTTP
+# ---------------------------------------------------------------------------
+
+# each kind's Gram kernel as torch.profiler names it: its template and its
+# policy (K1 and K4 share gram_kernel)
+GRAM_NAMES = {"matern32": ("gram_kernel", "Matern32"),
+              "matern52": ("gram_staged_kernel", "Matern52"),
+              "rbf": ("gram_kernel", "SE")}
+SERVE_REQUESTS = 50           # single-client requests per path
+SERVE_SIZES = [1, 3, 7, 16, 31, 63, 100, 127]   # serve_concurrency.py's mix
+SERVE_ROUNDS = 5
+
+
+def pad_rows(x0, bs):
+    """x0 padded to bs rows by repeating its last row, as the server pads."""
+    return np.concatenate([x0, np.repeat(x0[-1:], bs - x0.shape[0], 0)])
+
+
+def p50_p95(ms):
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+def latency_ms(fn, n=SERVE_REQUESTS):
+    """Host-clock ms of n calls of fn, each returning host arrays, after
+    two warm calls."""
+    fn()
+    fn()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def replay_profile(label, fn, top=6):
+    """torch.profiler over one dispatch fn(): the total device time (ms) of
+    its kernels and copies, and the kernels' names; prints the top ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    total = sum(e.device_time_total for e in events) / 1e3
+    say(f"  profile of {label}: {total:.3f} ms device time; top:")
+    for e in events[:top]:
+        say(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<3d} "
+            f"{e.key[:100]}")
+    return total, [e.key for e in events]
+
+
+def check_gram_in(names, kind, where):
+    template, policy = GRAM_NAMES[kind]
+    hit = [k for k in names if template in k and policy in k]
+    say(f"  {family_of(kind).label} ({template}<..., {policy}>) in {where}: "
+        f"{len(hit)} kernel name(s), e.g. {hit[0][:90] if hit else None}")
+    check(bool(hit), f"{family_of(kind).label}'s kernel is not in {where}: "
+          f"{names}")
+
+
+def compare_np(name, got, ref, rtol, atol=0.0):
+    import torch
+    return compare(name, torch.as_tensor(np.asarray(got)),
+                   torch.as_tensor(np.asarray(ref)), rtol, atol)
+
+
+def captures_in(events):
+    return [e for e in events if e[0].startswith("CUDA graph capture")]
+
+
+def http_json(url, payload=None, timeout=120):
+    """(status, JSON reply, body bytes) of a GET (payload None) or POST."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read()
+            return r.status, json.loads(body), len(body)
+    except urllib.error.HTTPError as e:
+        body = e.read()
+        return e.code, json.loads(body), len(body)
+
+
+def model_outs(m, x0, **kw):
+    return [None if o is None else o.cpu().numpy()
+            for o in m.predict(x0, **kw)]
+
+
+def count_sum(counts):
+    """The sum of fitc_counts() readings."""
+    return {k: tuple(tuple(map(sum, zip(*(c[k][i] for c in counts))))
+                     for i in range(2)) for k in counts[0]}
+
+
+def phase_serve(dev, card, x, y, xte, free_np, m6):
+    """Phase 12: the port's PredictServer at config 4 on captured CUDA
+    graphs, and over phase 11's config-6 'fast' FITC model m6.  A replay
+    runs no Python, so the launches counted are the server's own: every
+    count is set to 0 just before each server's construction, reload or
+    first fullcov call and read just after it, with no reference or
+    baseline call inside.  Each model's aux is built by its reference
+    predict before that.  Returns ({kind: ((gram f64, ...), (gram f32,
+    ...))} launches, timings)."""
+    import threading
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.serve import PredictServer
+    from lcgp_tpu_torch.utils.profiling import log_compiles
+
+    tag = f"[{card}]"
+    out = {}
+    windows = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def own(label, make):
+        """make() with every count set to 0 just before it and read just
+        after: the launches of one capture and its eager warm step."""
+        reset_all_counts()
+        res = make()
+        c = fitc_counts()
+        windows.append(c)
+        grams = {k: (v[0][0], v[1][0]) for k, v in c.items()
+                 if v[0][0] or v[1][0]}
+        say(f"    {label}: Gram launches (f64, f32) {grams}")
+        return res
+
+    def model_of(free, **kw):
+        m = LCGP(y, x, q=20, device=dev, **kw)
+        m.free = free_params_from_numpy(*free, dev)
+        return m
+
+    m = model_of(free_np)
+    d = x.shape[1]
+    say("  -- 1. a server at batch_size=256 over the committed fit")
+    x300 = np.concatenate([xte, xte[:44]])
+    cases = [(n0, xr, model_outs(m, xr, batch_size=256), model_outs(m, xr))
+             for n0, xr in ((64, xte[:64]), (256, xte), (300, x300))]
+    with log_compiles() as events:
+        t0 = time.perf_counter()
+        srv = own("PredictServer(batch_size=256)",
+                  lambda: PredictServer(m, batch_size=256, warmup=False))
+        out["construct_s"] = time.perf_counter() - t0
+    caps = captures_in(events)
+    check(len(caps) == 1, f"the server captured {len(caps)} graphs")
+    out["capture_s"] = caps[0][1]
+    say(f"  PredictServer(batch_size=256): {out['construct_s']:.3f} s "
+        f"(state snapshot with the aux, one eager step, the capture); "
+        f"capture {out['capture_s'] * 1e3:.1f} ms {tag}")
+    for n0, xr, ref, raw in cases:
+        got = srv.predict(xr)
+        for name, g, r in zip(("ypred", "ypredvar", "yconfvar"), got, ref):
+            check(g.shape == (y.shape[0], n0), f"{name} shape {g.shape}")
+            compare_np(f"server {n0}-point {name} vs model.predict("
+                       "batch_size=256)", g, r, 1e-10)
+        rel = max(float(np.max(np.abs(g - r) / np.maximum(np.abs(r),
+                                                          1e-300)))
+                  for g, r in zip(got, raw))
+        say(f"    ({n0} points against the unbatched model.predict: max "
+            f"rel {rel:.3e})")
+    del cases
+    fn = srv._live
+    batch = pad_rows(xte[:64], 256)
+    got, ref = fn(batch), fn.eager(batch)
+    equal = all(np.array_equal(g, r) for g, r in zip(got, ref))
+    for name, g, r in zip(("ypred", "ypredvar", "yconfvar"), got, ref):
+        compare_normwise(f"replay vs eager fused step, {name}",
+                         torch.as_tensor(g), torch.as_tensor(r), 1e-12)
+    say(f"  replay bits equal to the eager step's: {equal}")
+    out["replay_bits_equal_eager"] = equal
+    out["dispatch_device_ms"], names = replay_profile(
+        "one dispatch (copy in, replay, copy out)", lambda: fn(batch))
+    check_gram_in(names, "matern32", "a profiled replay")
+    out["replay_ms"] = cuda_ms(lambda: fn.graph.replay())
+    say(f"  one dispatch: {out['dispatch_device_ms']:.3f} ms device time; "
+        f"the graph alone {out['replay_ms']:.3f} ms (CUDA events) {tag}")
+
+    say("  -- 2. single client, 64-point requests, "
+        f"{SERVE_REQUESTS} each (host clock, results on the host)")
+    x64 = xte[:64]
+    lat = {}
+    for bs, server in ((256, srv), (64, None)):
+        if server is None:
+            with log_compiles() as events:
+                server = own("PredictServer(batch_size=64)",
+                             lambda: PredictServer(m, batch_size=64,
+                                                   warmup=False))
+            check(len(captures_in(events)) == 1, "batch-64 server capture")
+        sfn = server._fn
+        lat[f"graph_{bs}"] = latency_ms(lambda: server.predict(x64))
+        lat[f"eager_{bs}"] = latency_ms(
+            lambda: sfn.eager(pad_rows(x64, bs)))
+        if bs == 64:
+            out["dispatch_64_device_ms"], _ = replay_profile(
+                "one batch-64 dispatch", lambda: sfn(x64))
+            out["replay_64_ms"] = cuda_ms(lambda: sfn.graph.replay())
+            say(f"  batch-64 dispatch: {out['dispatch_64_device_ms']:.3f} "
+                f"ms device time; the graph alone {out['replay_64_ms']:.3f}"
+                f" ms (CUDA events) {tag}")
+            server.shutdown()
+            check(not server._dispatcher.is_alive(), "dispatcher alive")
+            del server, sfn
+            torch.cuda.empty_cache()
+    lat["model_predict_64"] = latency_ms(
+        lambda: [o.cpu() for o in m.predict(x64, batch_size=64)])
+    for k, v in lat.items():
+        p50, p95 = p50_p95(v)
+        out[f"latency_{k}_p50_ms"], out[f"latency_{k}_p95_ms"] = p50, p95
+        say(f"  64-point request, {k}: p50 {p50:.3f} ms, p95 {p95:.3f} ms "
+            f"{tag}")
+
+    say(f"  -- 3. {len(SERVE_SIZES)} concurrent clients, sizes "
+        f"{SERVE_SIZES}, {SERVE_ROUNDS} rounds")
+    rng = np.random.default_rng(12)
+    inputs = [rng.uniform(0, 1, (s, d)) for s in SERVE_SIZES]
+    expect = [model_outs(m, xi, batch_size=256) for xi in inputs]
+    lats, answers, errors = [[] for _ in inputs], [[] for _ in inputs], []
+
+    def client(i):
+        try:
+            for _ in range(SERVE_ROUNDS):
+                t0 = time.perf_counter()
+                answers[i].append(srv.predict(inputs[i]))
+                lats[i].append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:          # noqa: BLE001
+            errors.append(repr(e))
+    calls0 = fn.calls
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(inputs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    dispatches = fn.calls - calls0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"concurrent clients failed: {errors}")
+    worst = 0.0
+    for i, outs in enumerate(answers):
+        for got in outs:
+            for g, r in zip(got, expect[i]):
+                check(np.allclose(g, r, rtol=1e-10, atol=0),
+                      f"a concurrent answer of size {SERVE_SIZES[i]} differs")
+                worst = max(worst, float(np.max(
+                    np.abs(g - r) / np.maximum(np.abs(r), 1e-300))))
+    chunks = len(inputs) * SERVE_ROUNDS
+    flat = [v for li in lats for v in li]
+    p50, p95 = p50_p95(flat)
+    single = out["latency_graph_256_p50_ms"]
+    out.update(concurrent_p50_ms=p50, concurrent_p95_ms=p95,
+               concurrent_dispatches=dispatches, concurrent_chunks=chunks,
+               concurrent_wall_s=wall)
+    say(f"  concurrent: p50 {p50:.3f} ms, p95 {p95:.3f} ms, p95 / "
+        f"single-client p50 {p95 / single:.2f}; {dispatches} dispatches for "
+        f"{chunks} chunks in {wall:.3f} s; every answer within rtol 1e-10 "
+        f"(max rel {worst:.3e}) {tag}")
+    check(dispatches < chunks, f"{dispatches} dispatches for {chunks} "
+          "chunks: no coalescing")
+
+    say("  -- 4. reload: the committed fit with lLmb0 shifted (same shapes), "
+        "then kernel='rbf'")
+    free2 = (free_np[0], free_np[1] - 0.5, free_np[2], free_np[3])
+    m2 = model_of(free2)
+    refs = [model_outs(mm, x64, batch_size=256) for mm in (m, m2)]
+    check(not np.allclose(refs[0][0], refs[1][0]), "the shifted fit "
+          "predicts the same")
+    stop = threading.Event()
+    seen, errors = [], []
+
+    def fire():
+        try:
+            while not stop.is_set():
+                seen.append(srv.predict(x64))
+        except Exception as e:          # noqa: BLE001
+            errors.append(repr(e))
+    # the reload's own peak: both models' aux (m2's built by its reference
+    # above) and the server's state are alive through it
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out["reload_base_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    bg = threading.Thread(target=fire)
+    bg.start()
+    time.sleep(0.05)
+    with log_compiles() as events:
+        t0 = time.perf_counter()
+        rep = own("same-shape reload", lambda: srv.reload(m2))
+        out["reload_same_ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_gb_two_states"] = torch.cuda.max_memory_allocated() / 1e9
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    time.sleep(0.05)
+    stop.set()
+    bg.join(timeout=60)
+    check(not bg.is_alive() and not errors, f"a request failed during the "
+          f"reload: {errors}")
+    which = []
+    for got in seen:
+        hit = [k for k, r in enumerate(refs)
+               if all(np.allclose(g, rr, rtol=1e-10, atol=0)
+                      for g, rr in zip(got, r))]
+        check(len(hit) == 1, "an answer during the reload is neither the "
+              "old model's nor the new one's")
+        which.append(hit[0])
+    check(which == sorted(which), "an old answer came after a new one")
+    say(f"  same-shape reload: reused_executable {rep['reused_executable']}, "
+        f"captures {len(captures_in(events))}, warmup_secs "
+        f"{rep['warmup_secs']}, {out['reload_same_ms']:.1f} ms; "
+        f"{len(seen)} requests during it ({which.count(0)} old, "
+        f"{which.count(1)} new), none failed {tag}")
+    check(rep["reused_executable"] is True and not captures_in(events),
+          "the same-shape reload was not reused or captured a graph")
+    for name, g, r in zip(("ypred", "ypredvar", "yconfvar"),
+                          srv.predict(x64), refs[1]):
+        compare_np(f"after the reload, {name} vs the new model", g, r, 1e-10)
+    say(f"  peak device memory during the same-shape reload (both models' "
+        f"aux and the server's state alive): {out['peak_gb_two_states']:.3f}"
+        f" GB, {out['reload_base_gb']:.3f} GB allocated before it {tag}")
+    del m2, refs
+    m3 = model_of(free_np, kernel="rbf")
+    ref3 = model_outs(m3, x64, batch_size=256)
+    with log_compiles() as events:
+        t0 = time.perf_counter()
+        rep = own("kernel='rbf' reload", lambda: srv.reload(m3))
+        out["reload_rbf_ms"] = (time.perf_counter() - t0) * 1e3
+    say(f"  kernel='rbf' reload: reused_executable "
+        f"{rep['reused_executable']}, captures {len(captures_in(events))}, "
+        f"{out['reload_rbf_ms']:.1f} ms {tag}")
+    check(rep["reused_executable"] is False and
+          len(captures_in(events)) == 1, "the rbf reload reused the graph")
+    for name, g, r in zip(("ypred", "ypredvar", "yconfvar"),
+                          srv.predict(x64), ref3):
+        compare_np(f"rbf server {name} vs model.predict", g, r, 1e-10)
+    fn = srv._live
+    _, names = replay_profile("one rbf dispatch",
+                              lambda: fn(pad_rows(x64, 256)))
+    check_gram_in(names, "rbf", "a profiled replay after the rbf reload")
+    del m3, ref3
+
+    say("  -- 5. fullcov through a server at batch_size=8")
+    x8 = xte[:8]
+    ref = model_outs(m, x8, return_fullcov=True)
+    srv8 = own("PredictServer(batch_size=8)",
+               lambda: PredictServer(m, batch_size=8, warmup=False))
+    t0 = time.perf_counter()
+    got = own("the first fullcov request",
+              lambda: srv8.predict_fullcov(x8))
+    out["fullcov_first_s"] = time.perf_counter() - t0
+    for name, g, r in zip(("ypred", "ypredvar", "yconfvar", "fullcov"),
+                          got, ref):
+        compare_np(f"fullcov server {name} vs model.predict("
+                   "return_fullcov=True)", g, r, 1e-8, 1e-12)
+    out["fullcov_ms"] = statistics.median(latency_ms(
+        lambda: srv8.predict_fullcov(x8), n=5))
+    say(f"  8-point fullcov: first {out['fullcov_first_s']:.3f} s (with its "
+        f"capture), warm median {out['fullcov_ms']:.3f} ms {tag}")
+    xr, yr, _ = rep_problem(5, 60, 3, 4, 8, 3)
+    mr = LCGP(yr, xr, q=2, submethod="rep", device=dev)
+    srv_rep = PredictServer(mr, batch_size=8, warmup=False)
+    try:
+        srv_rep.predict_fullcov(xr[:3])
+        check(False, "a rep model's fullcov did not raise")
+    except ValueError as e:
+        say(f"  rep model's fullcov raises: {e}")
+    srv_rep.shutdown()
+
+    say("  -- 6. FITC: phase 11's config-6 'fast' model (n=50,000, m=256)")
+    _, _, xte6, _, _ = fitc_config(6)
+    ref, raw = model_outs(m6, xte6, batch_size=256), model_outs(m6, xte6)
+    srv6 = own("FITC PredictServer(batch_size=256)",
+               lambda: PredictServer(m6, batch_size=256, warmup=False))
+    got = srv6.predict(xte6)
+    for name, g, r in zip(("ypred", "ypredvar", "yconfvar"), got, ref):
+        compare_np(f"FITC server {name} vs its predict(batch_size=256)",
+                   g, r, 1e-6)
+    rel = max(float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-30)))
+              for g, r in zip(got, raw))
+    say(f"    (against the unbatched predict: max rel {rel:.3e})")
+    f6 = srv6._live
+    dev6, names = replay_profile("one FITC dispatch",
+                                 lambda: f6(pad_rows(xte6[:64], 256)))
+    check_gram_in(names, "matern32", "a profiled FITC replay (Knm)")
+    out["fitc_dispatch_device_ms"] = dev6
+    out["fitc_latency_p50_ms"] = p50_p95(latency_ms(
+        lambda: srv6.predict(xte6[:64])))[0]
+    say(f"  FITC 64-point request p50 {out['fitc_latency_p50_ms']:.3f} ms, "
+        f"dispatch device time {dev6:.3f} ms {tag}")
+    srv6.shutdown()
+    del m6, srv6, f6
+
+    say("  -- 7. HTTP on 127.0.0.1 (port 0)")
+    httpd, _ = srv.serve(port=0, background=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    code, body, _ = http_json(base + "/healthz")
+    check(code == 200 and body == {"status": "ok"}, f"/healthz {code}")
+    code, info, _ = http_json(base + "/info")
+    check(code == 200 and info["p"] == y.shape[0] and info["kernel"] == "rbf"
+          and info["reload_count"] == 2, f"/info {code} {info}")
+    inproc = srv.predict(x64)
+    http_ms, size = [], 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        code, body, size = http_json(base + "/predict", {"x": x64.tolist()})
+        http_ms.append((time.perf_counter() - t0) * 1e3)
+        check(code == 200, f"/predict {code}")
+    for key, g in zip(("ypred", "ypredvar", "yconfvar"), inproc):
+        check(np.array_equal(np.asarray(body[key]), g),
+              f"HTTP {key} differs from the in-process answer")
+    out["http_64_ms"] = statistics.median(http_ms)
+    say(f"  /healthz, /info; 64-point /predict equal to the in-process "
+        f"answer: median {out['http_64_ms']:.2f} ms of 5 ({size} bytes) "
+        f"{tag}")
+    code, body, _ = http_json(base + "/reload", {"path": "m.npz"})
+    check(code == 403, f"/reload without reload_dir answered {code}")
+    httpd8, _ = srv8.serve(port=0, background=True)
+    t0 = time.perf_counter()
+    code, body, size = http_json(
+        f"http://127.0.0.1:{httpd8.server_address[1]}/predict",
+        {"x": x8.tolist(), "fullcov": True}, timeout=300)
+    out["http_fullcov_8_s"] = time.perf_counter() - t0
+    check(code == 200, f"fullcov /predict {code}")
+    check(np.array_equal(np.asarray(body["yfullcov"]),
+                         srv8.predict_fullcov(x8)[3]),
+          "HTTP fullcov differs from the in-process answer")
+    say(f"  /reload 403 by default; 8-point fullcov /predict "
+        f"{out['http_fullcov_8_s']:.3f} s ({size / 1e6:.1f} MB of JSON) "
+        f"{tag}")
+    for server in (srv, srv8):
+        server.shutdown()
+        check(not server._dispatcher.is_alive(), "a dispatcher is alive "
+              "after shutdown()")
+    counts = count_sum(windows)
+    say(f"  phase 12 server launches (Gram, VJP, K5) f64 / f32, each "
+        f"capture and its eager warm step: {counts}")
+    out["peak_gb"] = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    say(f"  phase 12 peak device memory {out['peak_gb']:.3f} GB {tag}")
+    del srv, srv8, m
+    torch.cuda.empty_cache()
+    say(f"  phase 12 timings JSON: {json.dumps(out)}")
+    return counts, out
 
 
 def other_library(root):
@@ -3543,8 +4016,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip()
     say("[1] card (nvidia-smi name, power.limit):")
-    say(smi.stdout.strip())
+    say(card)
     dev = torch.device("cuda", 0)
 
     sys.path.insert(0, str(ROOT))
@@ -3644,7 +4118,26 @@ def main() -> int:
         "configs 6-8 (n=50,000, 400,000 and 2,000,000, d=2, p=20, q=4, "
         "m=256 and 512): K1, K2, K4 and K5 against their plain versions "
         "at config 6's shapes, then the main path")
-    records += phase_fitc(dev, registers)
+    fitc_records, m6 = phase_fitc(dev, registers)
+    records += fitc_records
+
+    say("[12] the prediction server (lcgp_tpu_torch/serve.py) on captured "
+        "CUDA graphs: config 4 (n=4096, p=1000, q=20, d=8, f64) at batch "
+        "sizes 256, 64 and 8, its rbf reload, FITC config 6 and HTTP")
+    x, y, xte, _ = config4()
+    counts, serve = phase_serve(dev, card, x, y, xte, free_np, m6)
+    del x, y, xte, m6
+    # the server's own launches (each capture and its eager warm step);
+    # the replays that answer requests run no Python and add none
+    by_name = {rec["name"]: rec for rec in records}
+    for name, kind, f32 in (("matern32_gram", "matern32", 0),
+                            ("rbf_gram", "rbf", 0),
+                            ("matern32_gram_fitc_f32", "matern32", 1)):
+        n = counts[kind][f32][0]
+        check(n > 0, f"{name} did not launch on phase 12's main path")
+        by_name[name]["launches"] += n
+        by_name[name]["launches_serve"] = n
+    record["serve"] = serve
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

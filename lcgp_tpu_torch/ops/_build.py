@@ -19,6 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..utils.profiling import record_compile
 from .launch import FAMILIES
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -109,7 +110,8 @@ def build() -> KernelLibrary:
     log_path = out_dir / "build.log"
     t0 = time.perf_counter()
     log = ""
-    if lib_path.exists():
+    built = not lib_path.exists()
+    if not built:
         # the compiler's report of the build that made this library
         log = log_path.read_text() if log_path.exists() else ""
     else:
@@ -152,4 +154,7 @@ def build() -> KernelLibrary:
         finally:
             shutil.rmtree(work, ignore_errors=True)
     _LIBRARY = KernelLibrary(lib_path, time.perf_counter() - t0, log)
+    record_compile(f"kernel library {lib_path} "
+                   f"({'built' if built else 'loaded'})",
+                   _LIBRARY.build_seconds)
     return _LIBRARY

@@ -1,0 +1,702 @@
+"""Prediction serving: a warm, fixed-shape predict path behind a minimal
+HTTP JSON API (counterpart of the JAX package's ``serve.py``).
+
+Load a saved model once, build the predict step at a fixed batch shape
+(requests of any size are chunked and padded to it, so the server never
+rebuilds per request), and serve.  On CUDA the step, standardize -> latent
+core -> recombine, is a CUDA graph captured once per static signature and
+batch shape over a static input buffer and the server's own state tensors:
+a warm dispatch is one copy in, one graph replay (the Gram kernel K1, K3 or
+K4 of the cross-covariance and the cuBLAS calls inside it) and one copy out.
+On the CPU the same step runs eagerly.
+
+Concurrency: a single dispatcher thread owns the predict graph and
+*microbatches*: concurrent requests are coalesced row-wise into one padded
+fixed-shape dispatch and the results fanned back out, so k concurrent small
+requests cost about one device call instead of k serialized ones.
+
+API:
+  GET  /healthz            -> {"status": "ok"}
+  GET  /info               -> model/config summary
+  POST /predict {"x": [[...], ...]}
+       -> {"ypred": [[p x n0]], "ypredvar": ..., "yconfvar": ...}
+  POST /predict {"x": ..., "fullcov": true}
+       -> adds "yfullcov" (n0 x p x p); submethod='full' models only
+  POST /reload  {"path": "new_model.npz"}
+       -> hot-swap the served model with zero downtime; when the new
+          model's config and state shapes match (the periodic-refit
+          pattern) the captured graph is reused: the new state is copied
+          into the tensors it reads, with no new capture.  Replies with
+          {"reused_executable": ..., "warmup_secs": ..., ...info}.
+          Disabled (403) unless the server was given ``reload_dir``.
+
+Usage:
+  python -m lcgp_tpu_torch.serve model.npz --port 8080 --batch-size 256
+or programmatically:
+  server = PredictServer('model.npz'); server.serve(port=8080)
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import queue as queue_mod
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from .utils.profiling import record_compile
+
+_F64 = torch.float64
+
+
+class _Chunk:
+    """One <=batch_size slice of a request, awaiting a microbatch slot."""
+    __slots__ = ('x0', 'event', 'result', 'error')
+
+    def __init__(self, x0):
+        self.x0 = x0
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class _Swap:
+    """A reload's swap of the served model, run by the dispatcher thread
+    between two dispatches."""
+    __slots__ = ('apply', 'event', 'error')
+
+    def __init__(self, apply):
+        self.apply = apply
+        self.event = threading.Event()
+        self.error = None
+
+
+def _is_path(obj) -> bool:
+    return isinstance(obj, (str, bytes)) or hasattr(obj, '__fspath__')
+
+
+def _map(fn, tree):
+    """``fn`` applied to every tensor of a tree of dicts and NamedTuples,
+    keeping the tree's structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return type(tree)(*(_map(fn, v) for v in tree))
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree, dict entries in key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [t for v in tree for t in _leaves(v)]
+
+
+def _structure(tree):
+    """A tree's structure without its tensors, comparable with ``==``."""
+    if isinstance(tree, torch.Tensor):
+        return None
+    if isinstance(tree, dict):
+        return tuple((k, _structure(tree[k])) for k in sorted(tree))
+    return (type(tree).__name__, tuple(_structure(v) for v in tree))
+
+
+class _Fused:
+    """The fused predict step at the server's fixed batch shape, bound to
+    the state tensors it reads (the counterpart of the jitted executable).
+
+    ``step(state, x0)`` is the step as a function (standardize -> latent
+    core -> recombine, returning a tuple of tensors).  On CUDA it is
+    captured once into a CUDA graph over a static (batch_size, d) input
+    buffer and ``state``; a call ``fn(x0)`` copies the padded batch in,
+    replays the graph and copies the outputs to the host before it returns,
+    so the next replay may overwrite them.  A capture that fails raises: there is no
+    eager fallback on CUDA.  On the CPU the step runs eagerly.  ``calls``
+    counts the calls, one per dispatch."""
+
+    def __init__(self, step, state, batch_size: int, d: int, what: str):
+        self.step, self.state = step, state
+        self.device = state['x_min'].device
+        self.calls = 0
+        self.graph = None
+        if self.device.type == 'cuda':
+            self._capture(batch_size, d, what)
+
+    def _capture(self, batch_size: int, d: int, what: str):
+        from .ops._build import build
+
+        build()   # the nvcc build and the dlopen stay outside the capture
+        self.stream = torch.cuda.Stream(self.device)
+        self.x0 = torch.full((batch_size, d), 0.5, dtype=_F64,
+                             device=self.device)
+        t0 = time.perf_counter()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.stream(self.stream):
+            # one eager call first, on the capture's stream: each kernel's
+            # first-launch set-up and the library handles stay outside it
+            self.step(self.state, self.x0)
+            self.stream.synchronize()
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode='thread_local'):
+                outs = self.step(self.state, self.x0)
+                # one flat output: one copy to the host per dispatch
+                self.flat = torch.cat([o.reshape(-1) for o in outs])
+        self.shapes = [tuple(o.shape) for o in outs]
+        self.graph = graph
+        record_compile(f'CUDA graph capture of {what} at batch '
+                       f'{batch_size}', time.perf_counter() - t0)
+
+    def eager(self, x0):
+        """The step run eagerly on the bound state (no graph); the outputs
+        as NumPy arrays."""
+        with torch.no_grad():
+            outs = self.step(self.state, torch.as_tensor(
+                x0, dtype=_F64, device=self.device))
+        return [o.cpu().numpy() for o in outs]
+
+    def __call__(self, x0):
+        """The outputs at the (batch_size, d) float64 batch x0 over the
+        bound state, as NumPy arrays on the host."""
+        self.calls += 1
+        if self.graph is None:
+            return self.eager(x0)
+        with torch.cuda.stream(self.stream):
+            self.x0.copy_(torch.from_numpy(x0))
+            self.graph.replay()
+            flat = self.flat.cpu().numpy()    # waits for the replay
+        outs, ofs = [], 0
+        for shape in self.shapes:
+            size = int(np.prod(shape))
+            outs.append(flat[ofs:ofs + size].reshape(shape))
+            ofs += size
+        return outs
+
+    def load_state(self, new):
+        """Copy ``new`` (the bound state's structure, shapes and dtypes)
+        into the bound state tensors, and wait for the copies."""
+        if self.device.type != 'cuda':
+            for dst, src in zip(_leaves(self.state), _leaves(new)):
+                dst.copy_(src)
+            return
+        with torch.cuda.stream(self.stream):
+            for dst, src in zip(_leaves(self.state), _leaves(new)):
+                dst.copy_(src)
+            self.stream.synchronize()
+
+
+class PredictServer:
+    def __init__(self, model_or_path, batch_size: int = 256,
+                 warmup: bool = True, reload_dir=None, device='cuda'):
+        """``reload_dir``: directory HTTP ``POST /reload`` may load model
+        files from.  ``None`` (default) disables the HTTP reload endpoint
+        entirely — an unauthenticated endpoint that loads any
+        client-named filesystem path is an arbitrary-file-read primitive.
+        The in-process :meth:`reload` method is always available.
+
+        ``device``: where a model loaded from a path lives (``LCGP.load``);
+        a model object is served on its own device.  The server predicts
+        from its own copy of the model's state, so a later ``fit`` on the
+        model object changes nothing served until :meth:`reload`.  On
+        CUDA the predict graph is captured here."""
+        from .models.lcgp import LCGP
+        if _is_path(model_or_path):
+            self.model = LCGP.load(model_or_path, device=device)
+        else:
+            self.model = model_or_path
+        self.reload_dir = (None if reload_dir is None
+                           else os.path.realpath(os.fspath(reload_dir)))
+        self.batch_size = int(batch_size)
+        self._httpd = None
+        self._reload_lock = threading.Lock()
+        self._reload_count = 0
+        self._sig = self._static_sig(self.model)
+        self._state = self._extract_state(self.model)
+        self._fn = self._build_fused(self.model, self._state)
+        self._live = self._fn      # the step the dispatcher reads
+        self._fn_fullcov = None                  # built on first use
+        self._fullcov_lock = threading.Lock()
+        # held while state tensors are written in place (a same-shape
+        # reload) and while a fullcov request reads them
+        self._state_lock = threading.Lock()
+        # a request's chunks, and a reload's swap, enter the queue under
+        # this lock: no swap falls between two chunks of one request
+        self._enqueue_lock = threading.Lock()
+        self._closed = False
+        self._queue: queue_mod.Queue = queue_mod.Queue()
+        self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                            daemon=True)
+        self._dispatcher.start()
+        if warmup:
+            self.warmup()
+
+    @staticmethod
+    def _static_sig(model):
+        """Trace-relevant model config: two models with equal signatures
+        share one fused function (and, with equal state shapes, one
+        captured graph).  The port's models have no mesh yet: ``_n_mesh``
+        reads as None."""
+        return (model.submethod, model.kernel, str(model._compute_dtype),
+                float(model._jitter), model.q_chunk, model._z is not None,
+                getattr(model, '_n_mesh', None),
+                bool(model.rep_standardize_ybar))
+
+    @staticmethod
+    def _extract_state(model):
+        """Everything the fused step consumes, as tensors the server owns:
+        clones of the model's, the hot-reloadable part.  A refit (or a
+        refit on same-shape new data) changes only these values, so a
+        reload copies them into the captured graph's tensors and captures
+        nothing.  Clones, because a graph binds addresses: a reload's
+        in-place write must not reach the user's model, and a later ``fit``
+        on the model must not reach the server (snapshot semantics)."""
+        return _map(lambda t: t.detach().clone(
+            memory_format=torch.contiguous_format),
+            PredictServer._model_state(model))
+
+    @staticmethod
+    def _model_state(model):
+        """The tensors of ``_extract_state``, still the model's own."""
+        st = dict(free=model._free, data=model._data,
+                  aux=model._ensure_aux(),
+                  x_min=model.x_min, x_max=model.x_max)
+        if model._z is not None:
+            st['z'] = model._z
+        if model.submethod == 'rep':
+            if model.rep_standardize_ybar:
+                st['mean'], st['std'] = model.ybar_mean, model.ybar_std
+            else:
+                st['mean'] = torch.zeros_like(model.ybar_mean)
+                st['std'] = torch.ones_like(model.ybar_std)
+        else:
+            st['mean'], st['std'] = model.ymean, model.ystd
+        return _map(torch.Tensor.detach, st)
+
+    def _latent_core(self, model):
+        """The pure latent-predict core for the model's static config:
+        state-parametric counterpart of ``LCGP._latent_predict``.  FITC's
+        variances are clamped at 0 without the model's clamp statistics."""
+        from .models import predict as pred
+
+        cdtype, jitter = model._compute_dtype, model._jitter
+        kernel, q_chunk = model.kernel, model.q_chunk
+        if model._z is not None:
+            from .models import sparse
+
+            def core(st, x0s):
+                ghat, gvar = sparse.predict_fitc_core(
+                    st['free'], st['data'], st['aux'], st['z'], x0s,
+                    compute_dtype=cdtype, kernel=kernel)
+                return ghat, torch.clamp_min(gvar, 0.0)
+            return core
+        if getattr(model, '_n_mesh', None) is not None:
+            raise NotImplementedError(
+                'serving an n-sharded (mesh) model is not ported yet '
+                '(ROADMAP.md item 17, multi-device)')
+        fn = (pred.predict_rep_core if model.submethod == 'rep'
+              else pred.predict_full_core)
+
+        def core(st, x0s):
+            return fn(st['free'], st['data'], st['aux'], x0s,
+                      compute_dtype=cdtype, jitter=jitter, kernel=kernel,
+                      q_chunk=q_chunk)
+        return core
+
+    def _build_fused(self, model, state):
+        """One end-to-end predict step at the fixed batch shape over
+        ``state``: a CUDA graph on CUDA (captured here), the eager step on
+        the CPU.
+
+        Driving model.predict per request costs several separate launches
+        and host round trips (standardize, core, recombine, pad/slice);
+        the graph makes a warm request one replay, with padding and
+        unpadding done host-side in NumPy.  The model state enters as the
+        ``state`` tensors the graph reads, not as constants: ``reload``
+        writes a same-shape state into them, so a parameter-only model
+        update costs no capture and no downtime."""
+        from .models import predict as pred
+
+        latent = self._latent_core(model)
+        rec = (pred.recombine_rep if model.submethod == 'rep'
+               else pred.recombine_full)
+
+        def fused(state, x0):
+            x0s = (x0 - state['x_min']) / (state['x_max'] - state['x_min'])
+            ghat, gvar = latent(state, x0s)
+            return rec(state['free'], state['data'], ghat, gvar,
+                       state['mean'], state['std'])
+
+        return _Fused(fused, state, self.batch_size, int(model.d),
+                      f'the predict step {self._static_sig(model)}')
+
+    def reload(self, model_or_path):
+        """Hot-swap the served model with zero downtime.
+
+        Loads the new model (path or LCGP instance; a path loads onto the
+        served model's device), warms its predict OFF the serving path,
+        then has the dispatcher swap it in between two dispatches.  Every
+        request is answered wholly by the old model or wholly by the new
+        one; requests queued after the swap see the new one.
+
+        When the new model's static config matches (submethod, kernel,
+        precision, q_chunk, FITC/mesh mode) and its state tensors' shapes,
+        dtypes and devices equal the old state's (the common
+        refit-on-new-data case), the captured graph is reused outright:
+        the new model's state is copied straight into the tensors it reads.
+        Otherwise a new graph is captured over a clone of the new state.  Returns a dict:
+        ``{'reused_executable': bool, 'warmup_secs': float, ...info}``.
+        """
+        from .models.lcgp import LCGP
+
+        if _is_path(model_or_path):
+            new_model = LCGP.load(model_or_path, device=self.model.device)
+        else:
+            new_model = model_or_path
+        if int(new_model.d) != int(self.model.d):
+            raise ValueError(
+                f'reload d mismatch: serving d={int(self.model.d)}, new '
+                f'model d={int(new_model.d)} — clients post (n0, d) inputs')
+
+        with self._reload_lock:
+            new_sig = self._static_sig(new_model)
+            # the new model's own tensors: a same-shape swap copies them
+            # into the graph's state, so only a new capture needs a clone
+            new_state = self._model_state(new_model)
+            same_shape = (new_sig == self._sig and
+                          _structure(new_state) == _structure(self._state)
+                          and all(a.shape == b.shape and a.dtype == b.dtype
+                                  and a.device == b.device
+                                  for a, b in zip(_leaves(new_state),
+                                                  _leaves(self._state))))
+            # Warm (capture if needed) off the serving path: the dispatcher
+            # keeps answering from the old state until the swap below.
+            x0 = np.full((self.batch_size, int(new_model.d)), 0.5)
+            t0 = time.time()
+            if same_shape:
+                fn = self._fn
+                with torch.no_grad():
+                    outs = fn.step(new_state, torch.as_tensor(
+                        x0, dtype=_F64, device=fn.device))
+                    outs[0].cpu()           # waits for the step
+            else:
+                new_state = self._extract_state(new_model)
+                fn = self._build_fused(new_model, new_state)
+                fn(x0)
+            warm = time.time() - t0
+
+            def swap():
+                if same_shape:
+                    with self._state_lock:
+                        fn.load_state(new_state)
+                else:
+                    self._fn_fullcov = None  # rebuilt on next fullcov request
+                self.model, self._state, self._fn, self._sig = \
+                    new_model, fn.state, fn, new_sig
+                self._live = fn
+                self._reload_count += 1
+            self._run_on_dispatcher(swap)
+        return dict(reused_executable=bool(same_shape),
+                    warmup_secs=round(warm, 3), **self.info())
+
+    def _run_on_dispatcher(self, apply):
+        """Run ``apply`` on the dispatcher thread between two dispatches
+        (inline once the server is shut down); re-raise its error."""
+        swap = _Swap(apply)
+        with self._enqueue_lock:
+            if self._closed:
+                apply()
+                return
+            self._queue.put(swap)
+        swap.event.wait()
+        if swap.error is not None:
+            raise swap.error
+
+    def warmup(self):
+        """Run one full fixed-batch dispatch before the first request."""
+        d = int(self.model.d)
+        x0 = np.full((self.batch_size, d), 0.5)
+        t0 = time.time()
+        self.predict(x0)
+        return time.time() - t0
+
+    def predict(self, x0):
+        """Thread-safe predict through the microbatching dispatcher.
+
+        The request is split into <=batch_size chunks; each chunk is
+        coalesced with whatever other requests are concurrently pending
+        into one padded fixed-shape dispatch, and the rows are fanned back
+        out.  Values are identical to ``model.predict``, as NumPy arrays.
+        """
+        x0 = np.atleast_2d(np.asarray(x0, dtype=np.float64))
+        if x0.shape[1] != int(self.model.d):
+            raise ValueError(
+                f'expected (n0, {int(self.model.d)}) inputs, got {x0.shape}')
+        bs = self.batch_size
+        chunks = [_Chunk(x0[s:s + bs]) for s in range(0, x0.shape[0], bs)]
+        with self._enqueue_lock:
+            if self._closed:
+                raise RuntimeError('the server is shut down')
+            for c in chunks:
+                self._queue.put(c)
+        for c in chunks:
+            c.event.wait()
+            if c.error is not None:
+                raise c.error
+        return tuple(np.concatenate([c.result[i] for c in chunks], axis=1)
+                     for i in range(3))
+
+    def predict_fullcov(self, x0):
+        """Predict with the (n0, p, p) full predictive covariance.
+
+        Full-submethod models only (the rep path's fullcov slot is None by
+        the reference contract, lcgp.py:928-929).  Fullcov payloads are
+        O(n0 p^2): requests run serialized through their own fused step
+        (a second graph on CUDA, captured on first use over the same state
+        tensors) rather than the row-microbatcher.  A request reads one
+        model's state throughout.
+        """
+        x0 = np.atleast_2d(np.asarray(x0, dtype=np.float64))
+        if x0.shape[1] != int(self.model.d):
+            raise ValueError(
+                f'expected (n0, {int(self.model.d)}) inputs, got {x0.shape}')
+        with self._fullcov_lock:
+            with self._reload_lock:     # pair fn_fullcov with the model;
+                # re-validate submethod here: a concurrent full->rep reload
+                # after an unlocked check would otherwise hand a rep model
+                # to the fullcov build
+                model = self.model
+                if model.submethod != 'full':
+                    raise ValueError(
+                        'full predictive covariance is only available '
+                        "for submethod='full' models")
+                if self._fn_fullcov is None:
+                    self._fn_fullcov = self._build_fused_fullcov(
+                        model, self._state)
+                fn = self._fn_fullcov
+            bs = self.batch_size
+            outs = []
+            with self._state_lock:
+                for s in range(0, x0.shape[0], bs):
+                    blk = x0[s:s + bs]
+                    k = blk.shape[0]
+                    if k < bs:
+                        blk = np.concatenate(
+                            [blk, np.repeat(blk[-1:], bs - k, axis=0)])
+                    res = fn(blk)
+                    outs.append((res[0][:, :k], res[1][:, :k],
+                                 res[2][:, :k], res[3][:k]))
+        return tuple(np.concatenate([o[i] for o in outs],
+                                    axis=1 if i < 3 else 0)
+                     for i in range(4))
+
+    def _build_fused_fullcov(self, model, state):
+        from .models import predict as pred
+
+        latent = self._latent_core(model)
+
+        def fused(state, x0):
+            x0s = (x0 - state['x_min']) / (state['x_max'] - state['x_min'])
+            ghat, gvar = latent(state, x0s)
+            yp, ypv, ycv = pred.recombine_full(state['free'], state['data'],
+                                               ghat, gvar,
+                                               state['mean'], state['std'])
+            cov = pred.fullcov_full(state['free'], state['data'], gvar,
+                                    state['std'])
+            return yp, ypv, ycv, cov
+
+        return _Fused(fused, state, self.batch_size, int(model.d),
+                      f'the fullcov step {self._static_sig(model)}')
+
+    def _dispatch_loop(self):
+        """Dispatcher thread: sole owner of the predict graph.
+
+        Blocks for one pending chunk, then greedily drains more pending
+        chunks while their rows still fit the fixed batch shape —
+        concurrent clients share a single padded dispatch.  A reload's swap
+        runs here too, between two dispatches.
+        """
+        bs = self.batch_size
+        while True:
+            first = self._queue.get()
+            if first is None:        # shutdown sentinel
+                return
+            if isinstance(first, _Swap):
+                try:
+                    first.apply()
+                except Exception as e:   # noqa: BLE001 — reload re-raises
+                    first.error = e
+                first.event.set()
+                continue
+            group = [first]
+            rows = first.x0.shape[0]
+            while rows < bs:
+                try:
+                    nxt = self._queue.queue[0]   # peek
+                except IndexError:
+                    break
+                if not isinstance(nxt, _Chunk) or \
+                        rows + nxt.x0.shape[0] > bs:
+                    break
+                group.append(self._queue.get_nowait())
+                rows += group[-1].x0.shape[0]
+            try:
+                batch = np.concatenate([c.x0 for c in group])
+                pad = bs - batch.shape[0]
+                if pad:
+                    batch = np.concatenate(
+                        [batch, np.repeat(batch[-1:], pad, axis=0)])
+                res = self._live(batch)
+                ofs = 0
+                for c in group:
+                    k = c.x0.shape[0]
+                    c.result = [o[:, ofs:ofs + k] for o in res]
+                    ofs += k
+                    c.event.set()
+            except Exception as e:   # noqa: BLE001 — fan the error out
+                for c in group:
+                    c.error = e
+                    c.event.set()
+
+    def info(self):
+        m = self.model
+        return dict(method=m.method, submethod=m.submethod, n=int(m.n),
+                    d=int(m.d), p=int(m.p), q=int(m.q),
+                    precision=m.precision, kernel=m.kernel,
+                    inducing=None if m._z is None else int(m._z.shape[0]),
+                    batch_size=self.batch_size,
+                    reload_count=self._reload_count)
+
+    # -- HTTP ----------------------------------------------------------
+    def _make_handler(server):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # quiet by default
+                pass
+
+            def _reply(self, code, payload):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header('Content-Type', 'application/json')
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == '/healthz':
+                    self._reply(200, {'status': 'ok'})
+                elif self.path == '/info':
+                    self._reply(200, server.info())
+                else:
+                    self._reply(404, {'error': 'not found'})
+
+            def do_POST(self):
+                if self.path == '/reload':
+                    if server.reload_dir is None:
+                        self._reply(403, {'error': 'HTTP reload disabled; '
+                                          'start the server with reload_dir= '
+                                          'to enable it'})
+                        return
+                    try:
+                        length = int(self.headers.get('Content-Length', 0))
+                        req = json.loads(self.rfile.read(length) or b'{}')
+                        path = os.path.realpath(
+                            os.path.join(server.reload_dir, str(req['path'])))
+                        if os.path.commonpath(
+                                [path, server.reload_dir]) != server.reload_dir:
+                            self._reply(403, {'error': 'reload path escapes '
+                                              'the configured reload_dir'})
+                            return
+                        self._reply(200, server.reload(path))
+                    except Exception as e:  # noqa: BLE001 — a corrupt model
+                        # file (BadZipFile, OSError, ...) must return a JSON
+                        # error, not abort the connection
+                        self._reply(400, {'error': f'{type(e).__name__}: {e}'})
+                    return
+                if self.path != '/predict':
+                    self._reply(404, {'error': 'not found'})
+                    return
+                try:
+                    length = int(self.headers.get('Content-Length', 0))
+                    req = json.loads(self.rfile.read(length) or b'{}')
+                    x0 = req['x']
+                    t0 = time.time()
+                    if req.get('fullcov'):
+                        ypred, ypredvar, yconfvar, cov = \
+                            server.predict_fullcov(x0)
+                        payload = {'yfullcov': cov.tolist()}
+                    else:
+                        ypred, ypredvar, yconfvar = server.predict(x0)
+                        payload = {}
+                    payload.update({
+                        'ypred': ypred.tolist(),
+                        'ypredvar': ypredvar.tolist(),
+                        'yconfvar': yconfvar.tolist(),
+                        'latency_s': round(time.time() - t0, 4),
+                    })
+                    self._reply(200, payload)
+                except (KeyError, ValueError, TypeError) as e:
+                    self._reply(400, {'error': str(e)})
+                except Exception as e:  # noqa: BLE001 — server-side failure:
+                    # reply 500 instead of aborting the connection
+                    self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+        return Handler
+
+    def serve(self, host: str = '127.0.0.1', port: int = 8080,
+              background: bool = False):
+        """Start the HTTP server.  background=True returns (httpd, thread)
+        immediately (for tests/embedding); otherwise blocks."""
+        self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
+        if background:
+            t = threading.Thread(target=self._httpd.serve_forever,
+                                 daemon=True)
+            t.start()
+            return self._httpd, t
+        try:
+            self._httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self._httpd.server_close()
+
+    def shutdown(self):
+        """Stop the HTTP server (if any) and join the dispatcher thread."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        with self._enqueue_lock:
+            if not self._closed:
+                self._closed = True
+                self._queue.put(None)    # stop the dispatcher thread
+        self._dispatcher.join(timeout=5)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description='Serve a saved LCGP model.')
+    ap.add_argument('model', help='path to a model .npz (LCGP.save)')
+    ap.add_argument('--host', default='127.0.0.1')
+    ap.add_argument('--port', type=int, default=8080)
+    ap.add_argument('--batch-size', type=int, default=256)
+    ap.add_argument('--cpu', action='store_true',
+                    help='serve on the CPU (default: the CUDA card)')
+    ap.add_argument('--reload-dir', default=None,
+                    help='directory POST /reload may load models from '
+                         '(omitted = HTTP reload disabled)')
+    args = ap.parse_args(argv)
+
+    server = PredictServer(args.model, batch_size=args.batch_size,
+                           warmup=False, reload_dir=args.reload_dir,
+                           device='cpu' if args.cpu else 'cuda')
+    secs = server.warmup()
+    print(f'[lcgp_tpu_torch.serve] warm ({secs:.1f}s); '
+          f'listening on {args.host}:{args.port}', flush=True)
+    server.serve(args.host, args.port)
+
+
+if __name__ == '__main__':
+    main()

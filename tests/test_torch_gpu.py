@@ -1363,3 +1363,189 @@ def test_k5_misaligned_cotangent_gives_the_aligned_bits(dev, dtype):
     again = fam.vjp_x(x1, x2, ls, amp, nug, M=_misaligned(M))
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# the prediction server on captured CUDA graphs (lcgp_tpu_torch/serve.py)
+# ---------------------------------------------------------------------------
+
+SERVE_KINDS = ['matern32', 'matern52', 'rbf']
+# each kind's Gram kernel in a profiler trace: its template and its policy
+GRAM_KERNEL_NAMES = {'matern32': ('gram_kernel', 'Matern32'),
+                     'matern52': ('gram_staged_kernel', 'Matern52'),
+                     'rbf': ('gram_kernel', 'SE')}
+
+
+def _serve_model(dev, mode, kind='matern32', seed=0, shift=0.0):
+    """A small model of each serving branch on ``dev`` at moderate
+    parameters: 'full', 'rep' (1-3 replicates a site) or 'fitc' (m=24)."""
+    from lcgp_tpu_torch import convert
+    rng = np.random.default_rng(seed)
+    n, d, p = 200, 3, 6
+    xu = rng.uniform(0, 1, (n, d))
+    t = np.linspace(0, 1, p)[:, None]
+    f = np.sin(2 * np.pi * (t + xu[:, :1].T)) * xu[:, 1:2].T \
+        + np.cos(np.pi * t * xu[:, 2:].T)
+    x, y = xu, f
+    if mode == 'rep':
+        reps = rng.integers(1, 4, n)
+        x, y = np.repeat(xu, reps, axis=0), np.repeat(f, reps, axis=1)
+    y = y + 0.05 * rng.standard_normal(y.shape)
+    m = lcgp_tpu_torch.LCGP(y, x, q=3, kernel=kind,
+                            submethod='rep' if mode == 'rep' else 'full',
+                            inducing=24 if mode == 'fitc' else None,
+                            device=dev)
+    free = [np.asarray(v.cpu()) for v in m._free]
+    free[0] = rng.uniform(-1.0, 0.5, free[0].shape)
+    free[1] = rng.uniform(0.0, 1.0, free[1].shape) + shift
+    m.free = convert.free_params_from_numpy(*free, dev)
+    return m
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels torch.profiler saw in one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _normwise(got, ref, tol):
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=tol * max(np.abs(r).max(), 1e-300))
+
+
+@pytest.mark.parametrize('kind', SERVE_KINDS)
+@pytest.mark.parametrize('mode', ['full', 'rep', 'fitc'])
+def test_served_graph_matches_eager_step_and_model(dev, mode, kind):
+    """One replay of the captured predict graph against the eager fused
+    step at the same batch shape (within 1e-12 of each output's largest
+    entry) and the model's own predict; the kind's Gram kernel was
+    launched at capture and runs inside the replay."""
+    from lcgp_tpu_torch.ops.launch import family
+    from lcgp_tpu_torch.serve import PredictServer
+    m = _serve_model(dev, mode, kind)
+    counter = family(kind).gram
+    before = counter.launches
+    srv = PredictServer(m, batch_size=32, warmup=False)
+    try:
+        assert srv._fn.graph is not None
+        assert counter.launches - before >= 2    # the eager call + capture
+        x0 = np.random.default_rng(1).uniform(0, 1, (32, 3))
+        fn = srv._live
+        got = fn(x0)
+        _normwise(got, fn.eager(x0), 1e-12)
+        ref = [o.cpu().numpy() for o in m.predict(x0)]
+        _normwise(srv.predict(x0[:20]), [r[:, :20] for r in ref], 1e-10)
+        template, policy = GRAM_KERNEL_NAMES[kind]
+        launched = counter.launches
+        names = _kernel_names(lambda: fn(x0))
+        assert counter.launches == launched       # a replay runs no Python
+        assert any(template in k and policy in k for k in names), names
+    finally:
+        srv.shutdown()
+
+
+def test_served_fullcov_graph_matches_model(dev):
+    from lcgp_tpu_torch.serve import PredictServer
+    m = _serve_model(dev, 'full')
+    srv = PredictServer(m, batch_size=8, warmup=False)
+    try:
+        x0 = np.random.default_rng(2).uniform(0, 1, (11, 3))
+        got = srv.predict_fullcov(x0)
+        assert srv._fn_fullcov.graph is not None
+        ref = [o.cpu().numpy() for o in m.predict(x0, return_fullcov=True)]
+        _normwise(got, ref, 1e-10)
+    finally:
+        srv.shutdown()
+
+
+def test_same_shape_reload_captures_nothing(dev):
+    """A same-shape reload copies the new state into the graph's tensors:
+    reused, no capture logged, the new model served; a reload of another
+    signature logs exactly one capture."""
+    from lcgp_tpu_torch.serve import PredictServer
+    from lcgp_tpu_torch.utils.profiling import log_compiles
+    m1, m2 = _serve_model(dev, 'full'), _serve_model(dev, 'full', shift=0.7)
+    with log_compiles() as built:
+        srv = PredictServer(m1, batch_size=16, warmup=False)
+    try:
+        assert len([e for e in built if 'CUDA graph' in e[0]]) == 1
+        graph = srv._fn.graph
+        x0 = np.random.default_rng(3).uniform(0, 1, (16, 3))
+        with log_compiles() as events:
+            out = srv.reload(m2)
+        assert out['reused_executable'] is True and events == []
+        assert srv._fn.graph is graph
+        _normwise(srv.predict(x0), [o.cpu().numpy() for o in m2.predict(x0)],
+                  1e-10)
+        m3 = _serve_model(dev, 'full', kind='rbf')
+        with log_compiles() as events:
+            assert srv.reload(m3)['reused_executable'] is False
+        assert [e for e in events if 'CUDA graph' in e[0]] == events
+        assert len(events) == 1
+        with log_compiles() as events:          # fullcov's own graph, once
+            srv.predict_fullcov(x0[:3])
+            srv.predict_fullcov(x0[:5])
+        assert len(events) == 1 and 'fullcov' in events[0][0]
+    finally:
+        srv.shutdown()
+
+
+def test_reload_under_concurrent_requests_is_atomic(dev):
+    """Clients fire multi-chunk requests while the model is swapped back
+    and forth on the card: none fails, each answer is wholly one model's."""
+    import threading
+    from lcgp_tpu_torch.serve import PredictServer
+    m1, m2 = _serve_model(dev, 'full'), _serve_model(dev, 'full', shift=0.7)
+    x0 = np.random.default_rng(4).uniform(0, 1, (40, 3))     # 3 chunks
+    refs = [m.predict(x0)[0].cpu().numpy() for m in (m1, m2)]
+    srv = PredictServer(m1, batch_size=16, warmup=True)
+    stop = threading.Event()
+    answers, errors = [], []
+
+    def client():
+        try:
+            while not stop.is_set():
+                answers.append(srv.predict(x0)[0])
+        except Exception as e:            # noqa: BLE001
+            errors.append(e)
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for m in (m2, m1, m2, m1, m2):
+            assert srv.reload(m)['reused_executable'] is True
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        stop.set()
+        srv.shutdown()
+    assert not errors, errors
+    for a in answers:
+        assert any(np.allclose(a, r, rtol=1e-10, atol=0) for r in refs)
+
+
+def test_served_state_survives_a_fit_on_the_model(dev):
+    from lcgp_tpu_torch.serve import PredictServer
+    m = _serve_model(dev, 'full')
+    srv = PredictServer(m, batch_size=16, warmup=False)
+    try:
+        x0 = np.random.default_rng(5).uniform(0, 1, (16, 3))
+        before = srv.predict(x0)
+        m.fit(method='adam', steps=5, learning_rate=1e-2)
+        fitted = [o.cpu().numpy() for o in m.predict(x0)]
+        assert not np.allclose(fitted[0], before[0])
+        for g, r in zip(srv.predict(x0), before):
+            np.testing.assert_array_equal(g, r)
+        assert srv.reload(m)['reused_executable'] is True
+        _normwise(srv.predict(x0), fitted, 1e-10)
+    finally:
+        srv.shutdown()
