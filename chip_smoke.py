@@ -124,6 +124,33 @@ Phases, each printing its own lines:
    in-process answer, /reload 403, an 8-point fullcov /predict) and
    shutdown() joining each dispatcher.  Every line of numbers carries the
    card's name and power limit.
+13. the mesh paths (``lcgp_tpu_torch/parallel``) at config 4, f64: first a
+   world of one NCCL rank in this process (a ``FileStore`` rendezvous):
+   the ('n',) mesh's loss+grad at the init and at the committed fit against
+   one device (loss rtol 1e-9, gradient GRAD_RTOL of each leaf's max |g|),
+   its aux (LBs to 1e-9 of the largest entry) and a 64-point predict (1e-7
+   of each output's largest entry), ``kernel='rbf'`` (K4) and a
+   ('comp','out') 1x1 loss+grad the same way, and
+   ``fit(mesh=..., method='scipy', maxiter=5)`` with K1 and K2 launched once
+   per evaluation; the warm loss+grad beside one device's, the aux, the
+   request and the peak memory; K1 and K2 in cross mode at the ('n',) 4
+   block shape (20, 1024, 4096) against their plain versions, timed with
+   their bounds.  Then four gloo ranks that compute on the card
+   (``parallel.WorkerGroup``; the compute mode must be Default), their
+   collectives staged through the host: ('n',) 4, ('comp','n') 2x2 and
+   ('comp','out') 2x2 at config 4, each rank's loss+grad, sampled factor
+   rows and predictions against one device, a two-iteration ('comp','out')
+   fit whose parameters are the same bits on every rank, the seconds,
+   staged bytes and peak memory of each rank, and the memory of one
+   loss+grad on a rank at ('n',) 4 under half of the same code's on the
+   one NCCL rank above (same card, same measure: peak less resident).
+   When one ('n',) 4 loss+grad takes over 60 s, the four ranks' run is cut
+   to n=2048, and ('n',) 1 then runs in the group at that n as the
+   yardstick.  The K1 and K2 rows gain ``launches_mesh`` (the mesh paths'
+   launches that row's shape takes), ``launches_mesh_by_shape`` and
+   ``launches_per_call["mesh_loss_grad"]``; the block rows take the
+   ('n',) 4 ranks' launches at their shape, the config-4 rows every other
+   mesh launch, each launch counted on one row only.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -3662,6 +3689,381 @@ def phase_serve(dev, card, x, y, xte, free_np, m6):
     return counts, out
 
 
+# Phase 13: the mesh paths.  The four ranks that share the card cut n to
+# MESH_CUT_N when one of their loss+grad evaluations takes over MESH_CUT_S.
+MESH_RANKS = 4
+MESH_CUT_S = 60.0
+MESH_CUT_N = 2048
+# the 4-rank run's meshes: ('n',) 4, ('comp','n') 2x2, ('comp','out') 2x2
+MESH_SPECS = (("n", 4), ("nc", 2, 2), ("co", 2, 2))
+
+
+def flat_vg(loss_fn, free):
+    """(vg, z0, flattener): one loss+grad evaluation as the fit drivers
+    take it, at the flat free parameters z0."""
+    from lcgp_tpu_torch.fit._flat import Flattener
+    from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    flat = Flattener(free)
+    return value_and_grad(loss_fn, flat), flat.ravel(free).cpu().numpy(), flat
+
+
+def check_vg(name, got, ref, flat):
+    """A mesh loss (rtol 1e-9) and flat gradient (each leaf within
+    GRAD_RTOL of its max |g|) against one device's."""
+    import torch
+    (v, g), (vr, gr) = got, ref
+    rel = abs(v - vr) / abs(vr)
+    say(f"  {name}: loss {v:.12e} vs one device {vr:.12e}, rel {rel:.3e} "
+        "(bound 1e-9)")
+    check(rel <= 1e-9, f"{name}: loss differs from one device")
+    compare_grads(name, torch.as_tensor(g), torch.as_tensor(gr), flat,
+                  GRAD_RTOL)
+
+
+class MeshCounts:
+    """K1 and K2 launches on the mesh paths, apart from the one-device
+    references beside them, by the shape they run at: ``by_shape`` maps a
+    key (mode, q, n1, n2) to [K1, K2].  Mode 'rows' is K1 in cross mode at
+    a rank's Gram rows (q, n1, n2) and K2 at their explicit cotangent,
+    'square' the same-point K1 and the fused K2 of an ('comp','out') mesh,
+    'predict' K1 at a request's cross-covariance."""
+
+    def __init__(self):
+        self.by_shape = {}
+
+    def add(self, key, k1, k2):
+        c = self.by_shape.setdefault(key, [0, 0])
+        c[0] += k1
+        c[1] += k2
+
+    def call(self, key, fn):
+        f = family_of("matern32")
+        a, b = f.gram.launches, f.vjp.launches
+        out = fn()
+        self.add(key, f.gram.launches - a, f.vjp.launches - b)
+        return out
+
+    def total(self):
+        return tuple(sum(c[i] for c in self.by_shape.values())
+                     for i in (0, 1))
+
+
+def mesh_shape_label(key):
+    mode, q, n1, n2 = key
+    what = {"rows": "Gram rows and their cotangent, cross mode",
+            "square": "square Gram and fused VJP",
+            "predict": "64-point cross-covariance"}[mode]
+    return f"{what} ({q}, {n1}, {n2})"
+
+
+def rank_keys(spec, n, q=20, n0=64):
+    """The MeshCounts keys of a rank of ``spec`` at n: its loss+grad and
+    aux (and fit), and its predict."""
+    kind, a, *b = spec
+    if kind == "co":
+        return ("square", -(-q // a), n, n), None
+    qc, nb = (q, -(-n // a)) if kind == "n" else (-(-q // a), -(-n // b[0]))
+    return ("rows", qc, nb, n), ("predict", qc, n0, nb)
+
+
+def phase_mesh_one_rank(dev, card, x, y, xte, free_np, counts):
+    """Phase 13, part 1: a world of one NCCL rank on the card, in this
+    process.  Returns the (K1, K2) launches of one mesh loss+grad and the
+    memory one takes beyond what was allocated before it (its peak less
+    the resident bytes), the yardstick of the four ranks'."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.parallel import init_distributed, nshard
+    from lcgp_tpu_torch.parallel import mesh as mesh_mod
+
+    tag = f"[{card}]"
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    init_distributed("nccl", dev, rank=0, world_size=1,
+                     store=dist.FileStore(os.path.join(store, "s"), 1))
+    try:
+        nmesh = nshard.make_n_mesh(device=dev)
+        say(f"  one NCCL rank: {nmesh}")
+        single = LCGP(y, x, q=20, device=dev)
+        meshed = LCGP(y, x, q=20, device=dev)
+        meshed.set_mesh(nmesh)
+        fitted = free_params_from_numpy(*free_np, dev)
+        mesh_loss = nshard.make_loss("full", single._data, nmesh)
+        rows, pred = rank_keys(("n", 1), x.shape[0])
+        square = rank_keys(("co", 1, 1), x.shape[0])[0]
+        for label, free in (("init", single.free), ("committed fit", fitted)):
+            vg_s, z0, flat = flat_vg(single._loss_fn(), free)
+            vg_m = flat_vg(mesh_loss, free)[0]
+            check_vg(f"('n',) 1 rank at the {label}", counts.call(
+                rows, lambda: vg_m(z0)), vg_s(z0), flat)
+        per_call = launches_of(lambda: counts.call(rows, lambda: vg_m(z0)))
+        say(f"  (K1, K2) launches of one mesh loss+grad: {per_call}")
+        check(per_call == (1, 1), f"a mesh loss+grad launched {per_call}")
+        t_s = [timed_s(lambda: vg_s(z0)) for _ in range(3)]
+        t_m = [timed_s(lambda: counts.call(rows, lambda: vg_m(z0)))
+               for _ in range(3)]
+        say(f"  {tag} warm loss+grad at the committed fit: mesh "
+            f"{statistics.median(t_m):.4f} s, one device "
+            f"{statistics.median(t_s):.4f} s (medians of 3)")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        counts.call(rows, lambda: vg_m(z0))
+        peak = torch.cuda.max_memory_allocated()
+        say(f"  {tag} peak memory of the mesh loss+grad: {peak / 1e9:.3f} "
+            f"GB ({resident / 1e9:.3f} GB resident before it)")
+
+        single.free, meshed.free = fitted, fitted
+        x0 = xte[:64]
+        ref = single.predict(x0)
+        t0 = time.perf_counter()
+        counts.call(rows, meshed.compute_aux_predictive_quantities)
+        torch.cuda.synchronize()
+        say(f"  {tag} mesh aux: {time.perf_counter() - t0:.4f} s")
+        compare_normwise("('n',) 1 rank LBs vs one device", meshed.LBs,
+                         single.LBs, 1e-9)
+        got = counts.call(pred, lambda: meshed.predict(x0))
+        for name, a, b in zip(("ypred", "ypredvar", "yconfvar"), got, ref):
+            compare_normwise(f"('n',) 1 rank 64-point {name}", a, b, 1e-7)
+        req = [timed_s(lambda: counts.call(pred, lambda: meshed.predict(x0)))
+               for _ in range(5)]
+        say(f"  {tag} mesh 64-point request: "
+            f"{statistics.median(req) * 1e3:.3f} "
+            f"ms (median of 5)")
+        del meshed, ref, got
+
+        rbf = LCGP(y, x, q=20, kernel="rbf", device=dev)
+        vg_s, z0, flat = flat_vg(rbf._loss_fn(), rbf.free)
+        vg_m = flat_vg(nshard.make_loss("full", rbf._data, nmesh,
+                                        kernel="rbf"), rbf.free)[0]
+        f4 = family_of("rbf")
+        k4 = f4.gram.launches, f4.vjp.launches
+        check_vg("('n',) 1 rank, kernel='rbf'", vg_m(z0), vg_s(z0), flat)
+        k4 = f4.gram.launches - k4[0], f4.vjp.launches - k4[1]
+        check(k4 == (2, 2), f"K4's Gram and VJP launched {k4} in the mesh "
+              "and one-device loss+grad, expected one each")
+        del rbf
+
+        comesh = mesh_mod.make_mesh(1, 1, device=dev)
+        vg_s, z0, flat = flat_vg(single._loss_fn(), single.free)
+        vg_c = flat_vg(mesh_mod.make_sharded_loss(comesh, single._data),
+                       single.free)[0]
+        check_vg("('comp','out') 1x1", counts.call(square, lambda: vg_c(z0)),
+                 vg_s(z0), flat)
+
+        fit = LCGP(y, x, q=20, device=dev)
+        got = launches_of(lambda: counts.call(
+            rows, lambda: fit.fit(mesh=nmesh, method="scipy", maxiter=5)))
+        nfev = int(fit._fit_result.nfev)
+        say(f"  fit(mesh=('n',) 1 rank, method='scipy', maxiter=5): loss "
+            f"{fit._fit_result.fun:.10g}, nfev {nfev}, (K1, K2) launches "
+            f"{got}")
+        check(got == (nfev, nfev), "the mesh fit did not launch K1 and K2 "
+              "once per evaluation")
+        return per_call, peak - resident
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_block_kernels(dev, card, xs):
+    """Phase 13, part 1: K1 in cross mode at the ('n',) 4 block shape
+    (20, 1024, 4096, d=8, f64), a rank's Gram rows, and K2 in cross mode at
+    a random cotangent of that shape, against their plain versions, timed in
+    turns with their bounds.  Returns the two kernel records."""
+    import torch
+    from lcgp_tpu_torch.ops._build import build
+    lib = build().lib
+    fam = family_of("matern32")
+    q, n, d = 20, xs.shape[0], xs.shape[1]
+    nb = n // MESH_RANKS
+    size = 8
+    ls, amp, nug = moderate_params(np.random.default_rng(41), q, d, dev,
+                                   torch.float64)
+    xblk = xs[nb:2 * nb].contiguous()
+    M = torch.randn((q, nb, n), generator=torch.Generator(
+        device=dev).manual_seed(42), dtype=torch.float64, device=dev)
+    ins = (xblk.numel() + xs.numel() + ls.numel() + 2 * q) * size
+    err_g = compare(f"K1 block rows (q={q}, nb={nb}, n={n}) vs plain",
+                    fam.launch(xblk, xs, ls, amp, nug, same=False)[0],
+                    fam.plain(xblk, xs, ls, amp, nug, same=False),
+                    F64_RTOL, F64_ATOL)
+    t_g = time_pair(f"K1 block rows (q={q} nb={nb} n={n})",
+                    raw_gram(lib, xblk, xs, ls, amp, nug, False),
+                    lambda: fam.plain(xblk, xs, ls, amp, nug, same=False),
+                    q * nb * n * size, plain_reps=3)
+    b_g = say_bound("K1 block rows", t_g[0], q * nb * n * size + ins,
+                    q * nb * n * k1_ops_per_entry(d, False))
+    got = fam.launch_vjp(xblk, xs, ls, amp, nug, same=False, M=M)
+    again = fam.launch_vjp(xblk, xs, ls, amp, nug, same=False, M=M)
+    ref = fam.vjp_plain(xblk, xs, ls, amp, nug, same=False, cbar=M)
+    scale = fam.scale(xblk, xs, ls, amp, nug, same=False, cbar=M)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          "K2 at the block shape: two launches differ")
+    err_v = compare_vjp(f"K2 cross mode at a random block cotangent "
+                        f"(q={q}, nb={nb}, n={n}) vs plain; two launches the "
+                        "same bits", got, ref, scale, kernel="K2")
+    t_v = time_pair(f"K2 block cotangent (q={q} nb={nb} n={n})",
+                    raw_vjp(lib, xblk, ls, amp, nug, M, None, 0.0, None,
+                            x2=xs),
+                    lambda: fam.vjp_plain(xblk, xs, ls, amp, nug,
+                                          same=False, cbar=M),
+                    M.numel() * size, "read", plain_reps=3)
+    b_v = say_bound("K2 block cotangent", t_v[0],
+                    M.numel() * size + ins + q * (d + 2) * size,
+                    q * nb * n * (k2_ops_per_entry(d) - 2))
+    shape = f"('n',) {MESH_RANKS} block f64 q={q} nb={nb} n={n} d={d}"
+    say(f"  [{card}] at the {shape}: K1 {t_g[0]:.4f} ms (plain "
+        f"{t_g[1]:.4f}, bound {b_g[0]:.4f}), K2 {t_v[0]:.4f} ms (plain "
+        f"{t_v[1]:.4f}, bound {b_v[0]:.4f})")
+    return [dict(name="matern32_gram_block", route="cuda", source=K1_SOURCE,
+                 replaces=K1_REPLACES, max_abs_err=err_g, ms=t_g[0],
+                 plain_ms=t_g[1], bound_ms=b_g[0], bound_by=b_g[1],
+                 library_ms=None, shape=f"Gram rows {shape}"),
+            dict(name="matern32_gram_vjp_block", route="cuda",
+                 source=K2_SOURCE, replaces=K2_REPLACES, max_abs_err=err_v,
+                 ms=t_v[0], plain_ms=t_v[1], bound_ms=b_v[0],
+                 bound_by=b_v[1], library_ms=None,
+                 shape=f"random cross cotangent {shape}")]
+
+
+def mesh_reference(dev, x, y, x0, free):
+    """One device's loss, flat gradient, factor and predictions at the
+    free parameters, to host, for the ranks' answers."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    m = LCGP(y, x, q=20, device=dev)
+    m.free = free
+    vg, z0, flat = flat_vg(m._loss_fn(), m.free)
+    v, g = vg(z0)
+    ref = dict(loss=v, grad=g, flat=flat, LB=m.LBs.cpu().numpy(),
+               predict=[t.cpu().numpy() for t in m.predict(x0)])
+    del m
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_rank(spec, r, ref, n):
+    """A rank's answers against one device: loss and gradient, the sampled
+    factor rows (1e-9 of the largest entry) and the predictions (1e-7 of
+    each output's largest entry)."""
+    import torch
+    tag = f"{spec} rank {r['rank']}"
+    check_vg(tag, (r["loss"], r["grad"]), (ref["loss"], ref["grad"]),
+             ref["flat"])
+    if "factor" in r:
+        a, b = r["factor_comps"]
+        got = torch.as_tensor(r["factor"])
+        want = torch.as_tensor(ref["LB"][a:b][:, r["factor_rows"], :n])
+        if got.numel():
+            compare_normwise(f"{tag} sampled LBs rows", got, want, 1e-9)
+        for name, u, v in zip(("ypred", "ypredvar", "yconfvar"),
+                              r["predict"], ref["predict"]):
+            compare_normwise(f"{tag} 64-point {name}", torch.as_tensor(u),
+                             torch.as_tensor(v), 1e-7)
+
+
+def phase_mesh_shared(dev, card, x, y, xte, free_np, peak1, counts):
+    """Phase 13, part 2: MESH_RANKS gloo ranks that compute on one card,
+    their collectives staged through the host, at config 4 on MESH_SPECS;
+    the memory one loss+grad takes on a rank at ('n',) MESH_RANKS (its
+    peak less its resident bytes) under half of ``peak1``, the same at
+    ('n',) 1 (part 1's NCCL rank, or at a cut n a rank of the group).
+    Adds the ranks' K1 and K2 launches to ``counts`` by shape; returns the
+    (K1, K2) launches of one loss+grad on a rank at ('n',) MESH_RANKS and
+    whether n was cut."""
+    import torch
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.parallel import WorkerGroup, tasks
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(f"  compute mode: {mode}")
+    check(mode == "Default", f"{MESH_RANKS} contexts on one card need "
+          f"compute mode Default, not {mode}")
+    fitted = free_params_from_numpy(*free_np, dev)
+    free = [t.cpu().numpy() for t in fitted]
+    x0 = xte[:64]
+    n = x.shape[0]
+    torch.cuda.empty_cache()
+    with WorkerGroup(MESH_RANKS, device=str(dev), backend="gloo",
+                     timeout=1200, collective_timeout=900) as group:
+
+        def run(spec, n, fit=None):
+            res = [r for r in group.run(
+                tasks.measure, spec, x[:n], y[:, :n], dict(q=20), free, x0,
+                device=str(dev), fit=fit) if r is not None]
+            key, pred = rank_keys(spec, n)
+            for r in res:
+                p = r.get("launches_predict", (0, 0))
+                counts.add(key, *(t - u for t, u in
+                                  zip(r["launches_total"], p)))
+                if pred is not None:
+                    counts.add(pred, *p)
+            peaks[spec] = max(r["peak_bytes"] - r["resident_bytes"]
+                              for r in res)
+            return res
+
+        ref, peaks, cut = mesh_reference(dev, x, y, x0, fitted), {}, False
+        for spec in MESH_SPECS:
+            fit = dict(method="scipy", maxiter=2) if spec[0] == "co" else None
+            res = run(spec, n, fit)
+            first = max(r["first_s"] for r in res)
+            if spec == ("n", MESH_RANKS) and first > MESH_CUT_S:
+                say(f"  CUT: one ('n',) {MESH_RANKS} loss+grad took "
+                    f"{first:.1f} s > {MESH_CUT_S:g} s; the {MESH_RANKS}-rank "
+                    f"run goes on at n={MESH_CUT_N}")
+                n, cut = MESH_CUT_N, True
+                ref = mesh_reference(dev, x[:n], y[:, :n], x0, fitted)
+                # the memory yardstick at the cut n: one rank of the group
+                for r in run(("n", 1), n):
+                    check_rank(("n", 1), r, ref, n)
+                peak1 = peaks[("n", 1)]
+                res = run(spec, n)
+            for r in res:
+                check_rank(spec, r, ref, n)
+                check(r["launches"] == (1, 1), f"{spec} rank {r['rank']}: "
+                      f"one loss+grad launched {r['launches']}")
+            if spec == ("n", MESH_RANKS):
+                per_rank = res[0]["launches"]
+            say(f"  [{card}] {spec} at n={n}: loss+grad first "
+                f"{max(r['first_s'] for r in res):.3f} s, warm "
+                f"{max(r['warm_s'] for r in res):.3f} s (slowest rank); "
+                "staged per loss+grad "
+                + ", ".join(f"{r['staged_bytes'] / 1e9:.3f}" for r in res)
+                + " GB; peak "
+                + ", ".join(f"{r['peak_bytes'] / 1e9:.3f}" for r in res)
+                + " GB (resident "
+                + ", ".join(f"{r['resident_bytes'] / 1e9:.3f}" for r in res)
+                + " GB)"
+                + ("" if "aux_s" not in res[0] else
+                   f"; aux {max(r['aux_s'] for r in res):.3f} s, 64-point "
+                   f"request {max(r['request_s'] for r in res) * 1e3:.1f} "
+                   "ms"))
+            if fit is not None:
+                for r in res[1:]:
+                    for u, v in zip(r["fit_free"], res[0]["fit_free"]):
+                        check(np.array_equal(u, v), f"{spec}: the ranks' "
+                              "fitted parameters differ")
+                say(f"  fit(mesh={spec}, method='scipy', maxiter=2): every "
+                    f"rank's parameters the same bits ({res[0]['fit_nfev']} "
+                    "evaluations)")
+        share = peaks[("n", MESH_RANKS)] / peak1
+        mem = peaks[("n", MESH_RANKS)]
+        say(f"  [{card}] one loss+grad's memory (peak less resident) on a "
+            f"rank at ('n',) {MESH_RANKS}: {mem / 1e9:.3f} GB, "
+            f"{share:.3f} of the same code's at ('n',) 1 "
+            f"({peak1 / 1e9:.3f} GB, "
+            + (f"one rank of the group at n={n})" if cut else "part 1)"))
+        check(share < 0.5, "the ('n',) per-rank memory is not under half "
+              "the world-of-one memory")
+    return per_rank, cut
+
+
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
@@ -4138,6 +4540,51 @@ def main() -> int:
         by_name[name]["launches"] += n
         by_name[name]["launches_serve"] = n
     record["serve"] = serve
+
+    say(f"[13] the mesh paths (lcgp_tpu_torch/parallel) at config 4 "
+        f"(n=4096, p=1000, q=20, d=8, f64): one NCCL rank, then "
+        f"{MESH_RANKS} gloo ranks sharing the card")
+    t13 = time.perf_counter()
+    x, y, xte, _ = config4()
+    counts13 = MeshCounts()
+    per_call_mesh, peak1 = phase_mesh_one_rank(dev, card, x, y, xte,
+                                               free_np, counts13)
+    xs = tx.standardize_x(torch.as_tensor(x, dtype=torch.float64,
+                                          device=dev))[0].contiguous()
+    block = phase_mesh_block_kernels(dev, card, xs)
+    del xs
+    torch.cuda.empty_cache()
+    per_call_block, cut = phase_mesh_shared(dev, card, x, y, xte, free_np,
+                                            peak1, counts13)
+    say(f"  (K1, K2) launches on the mesh paths: {counts13.total()}; by "
+        "shape: " + "; ".join(f"{mesh_shape_label(k)} {tuple(c)}" for k, c
+                             in sorted(counts13.by_shape.items())))
+    check(min(counts13.total()) > 0,
+          "K1 or K2 did not launch on the mesh paths")
+    # each launch on one row: the block rows take the ('n',) MESH_RANKS
+    # ranks' launches at the block shape, the config-4 rows every other
+    block_key = rank_keys(("n", MESH_RANKS), x.shape[0])[0]
+    for rec, i, at_block in ((record, 0, False), (record_vjp, 1, False),
+                             (block[0], 0, True), (block[1], 1, True)):
+        by = {mesh_shape_label(k): c[i] for k, c in
+              sorted(counts13.by_shape.items())
+              if (k == block_key) == at_block and c[i]}
+        rec["launches_mesh"] = sum(by.values())
+        rec["launches_mesh_by_shape"] = by
+    for rec, i in ((record, 0), (record_vjp, 1)):
+        rec["launches"] += rec["launches_mesh"]
+        rec["launches_per_call"]["mesh_loss_grad"] = per_call_mesh[i]
+    for rec, i in zip(block, (0, 1)):
+        rec["launches"] = rec["launches_mesh"]
+        rec["launches_per_call"] = ({} if cut else
+                                    {"mesh_loss_grad": per_call_block[i]})
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        check(cut or rec["launches"] > 0, f"{rec['name']} did not launch "
+              "at its shape on the mesh paths")
+    records += block
+    say(f"[13] done in {time.perf_counter() - t13:.1f} s"
+        + (f" (the {MESH_RANKS}-rank run cut to n={MESH_CUT_N})" if cut
+           else ""))
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

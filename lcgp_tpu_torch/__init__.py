@@ -12,7 +12,9 @@ npz ``save``/``load`` compatible with ``lcgp_tpu.LCGP``, the evaluation
 metrics and ``utils.diagnostics.health_check``; the prediction server
 (``serve.PredictServer``, ``python -m lcgp_tpu_torch.serve model.npz``) on
 captured CUDA graphs; ``datasets``, ``runner``, ``utils.profiling`` and
-``test()``.  On CUDA every Gram build
+``test()``; and the multi-device paths over ``torch.distributed``
+(``parallel``: the ('comp','out'), ('n',) and ('comp','n') meshes,
+``fit(mesh=...)`` and ``LCGP.set_mesh``).  On CUDA every Gram build
 runs the kernel's hand-written CUDA kernel (``csrc/matern32_gram.cu``,
 ``csrc/matern52_gram.cu``, ``csrc/rbf_gram.cu``), a gradient's Gram VJP
 its VJP kernel (``csrc/*_gram_vjp.cu``) and a gradient in the inducing

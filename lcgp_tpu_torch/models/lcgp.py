@@ -7,9 +7,18 @@ aux accessors, npz ``save``/``load`` format and fit checkpoints as
 ``'fast'`` float32, ``'auto'``) and every ``kernel`` (``'matern32'``,
 ``'matern52'``, ``'rbf'``), and the FITC inducing-point approximation
 (``inducing=``, ``n_chunk=``, :meth:`LCGP.refine_inducing`; its npz files
-too).  NumPy or tensors in, tensors on ``device`` out (float64, or float32
-latents under ``'fast'``).  What is not ported yet (``fit(mesh=)``) raises
+too), and the multi-device paths over ``torch.distributed``
+(``lcgp_tpu_torch/parallel``): ``fit(mesh=...)`` on a ('comp','out'),
+('n',) or ('comp','n') mesh and :meth:`LCGP.set_mesh`.  NumPy or tensors
+in, tensors on ``device`` out (float64, or float32 latents under
+``'fast'``).  What is not ported yet (FITC on an n-mesh) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+
+On a mesh every rank runs the same program: each constructs the same model
+and makes the same calls in the same order, and every call that reaches the
+mesh (``fit(mesh=)``, and with :meth:`LCGP.set_mesh` ``loss()``, the aux
+accessors, ``predict`` and ``save``) is a collective that every rank of
+the mesh must make.
 """
 from __future__ import annotations
 
@@ -43,6 +52,15 @@ def _resolve_device(device) -> torch.device:
             "LCGP(device='cuda'): CUDA is not available.  Pass device='cpu' "
             "to run the plain PyTorch path on the CPU.")
     return device
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """a and b name one device ('cuda' is the current card)."""
+    def full(d):
+        if d.type == 'cuda' and d.index is None:
+            return torch.device('cuda', torch.cuda.current_device())
+        return d
+    return full(torch.device(a)) == full(torch.device(b))
 
 
 class LCGP:
@@ -161,6 +179,9 @@ class LCGP:
         self._params_version = 0
         self._aux = None
         self._aux_version = -1
+        # the ('n',) or ('comp','n') mesh of fit(mesh=...) or set_mesh; with
+        # one, loss, aux and predict run n-sharded (parallel/nshard.py)
+        self._n_mesh = None
         # FITC's variance-clamp statistics of the last predict, as device
         # scalars (count, worst, total) read only by _fitc_clamp_stats; None
         # on the exact path or before a predict
@@ -434,6 +455,12 @@ class LCGP:
                 self._free, self._data, self._z,
                 compute_dtype=self._compute_dtype, kernel=self.kernel,
                 n_chunk=self.n_chunk)
+        if self._n_mesh is not None:
+            from ..parallel import nshard
+            return nshard.neglpost_full_nsharded(
+                self._free, self._data, self._n_mesh,
+                compute_dtype=self._compute_dtype, jitter=self._jitter,
+                kernel=self.kernel)
         return lik.neglpost_full(self._free, self._data,
                                  compute_dtype=self._compute_dtype,
                                  jitter=self._jitter, q_chunk=self.q_chunk,
@@ -447,10 +474,47 @@ class LCGP:
                 self._free, self._data, self._z,
                 compute_dtype=self._compute_dtype, kernel=self.kernel,
                 n_chunk=self.n_chunk)
+        if self._n_mesh is not None:
+            from ..parallel import nshard
+            return nshard.neglpost_rep_nsharded(
+                self._free, self._data, self._n_mesh,
+                compute_dtype=self._compute_dtype, jitter=self._jitter,
+                kernel=self.kernel)
         return lik.neglpost_rep(self._free, self._data,
                                 compute_dtype=self._compute_dtype,
                                 jitter=self._jitter, q_chunk=self.q_chunk,
                                 kernel=self.kernel)
+
+    def set_mesh(self, mesh):
+        """Attach (or detach, with None) an ('n',) or ('comp','n') mesh
+        (``parallel.nshard.make_n_mesh`` / ``make_nc_mesh``): ``loss()``,
+        the aux and ``predict`` then run n-sharded (``parallel/nshard.py``),
+        and each is a collective.  The mesh's device must be the model's.
+        Any other axis names raise ``ValueError``; an inducing-point model
+        raises ``NotImplementedError`` (n-sharded FITC is ROADMAP.md item
+        17c)."""
+        if mesh is not None:
+            from ..parallel import nshard
+            if not nshard.is_n_mesh(mesh):
+                raise ValueError(
+                    "set_mesh needs an ('n',) or ('comp','n') mesh "
+                    "(parallel.nshard.make_n_mesh / make_nc_mesh); got "
+                    f"axis names {tuple(mesh.axis_names)!r}")
+            if self._z is not None:
+                raise NotImplementedError(
+                    'n-sharded FITC (an inducing-point model on an '
+                    "('n',) or ('comp','n') mesh) is not ported yet "
+                    '(ROADMAP.md item 17c)')
+            self._check_mesh_device(mesh)
+        self._n_mesh = mesh
+        self._aux = None
+        self._aux_version = -1
+
+    def _check_mesh_device(self, mesh):
+        if not _same_device(mesh.device, self.device):
+            raise ValueError(f'the mesh computes on {mesh.device}, the '
+                             f'model lives on {self.device}; construct '
+                             'the model on the mesh\'s device')
 
     def _sync_refine_steps(self):
         cur = mixed_ops.parse_refine(self._compute_dtype)
@@ -550,8 +614,24 @@ class LCGP:
 
         checkpoint_path=... saves the free parameters, step and loss at
         every callback (each L-BFGS iteration or block, each Adam block);
-        restore with :meth:`restore_checkpoint`.  mesh= is not ported yet.
+        restore with :meth:`restore_checkpoint`.
+
+        mesh=... (``lcgp_tpu_torch.parallel``) runs the fit over a mesh, a
+        collective that every rank of the mesh calls alike.  An ('n',) or
+        ('comp','n') mesh shards the n axis (``parallel/nshard.py``) and
+        attaches the mesh (:meth:`set_mesh`), with the same
+        ``method='auto'`` choice ('mixed' runs in f64 there).  On a
+        ('comp','out') mesh (``parallel.make_mesh``) method='auto' or
+        'adam' runs ``parallel.fit_sharded`` (kwargs: steps,
+        learning_rate, block_steps, plateau_rtol, plateau_patience,
+        callback), and 'scipy' or 'lbfgs-jax' the single-device drivers
+        over ``parallel.mesh.make_sharded_loss``; the fitted parameters are
+        alike on every rank, and the model keeps no mesh.  Any other axis
+        names raise ``ValueError``, as does an inducing-point model on a
+        ('comp','out') mesh.  Checkpoints are written by the mesh's first
+        rank only.
         """
+        mesh = kwargs.pop('mesh', None)
         checkpoint_path = kwargs.pop('checkpoint_path', None)
         if checkpoint_path is not None:
             # np.savez appends '.npz' when missing; normalize once so
@@ -559,23 +639,25 @@ class LCGP:
             checkpoint_path = self._norm_ckpt_path(checkpoint_path)
             user_cb = kwargs.pop('callback', None)
 
+            # on a mesh every rank holds the same parameters: one writes
+            writer = mesh is None or mesh.is_first
+
             def _ckpt_cb(step, loss, params):
                 def host(t):
                     return t.detach().cpu().numpy()
-                np.savez(checkpoint_path, step=step, loss=loss,
-                         free_lLmb=host(params.lLmb),
-                         free_lLmb0=host(params.lLmb0),
-                         free_lsigma2s=host(params.lsigma2s),
-                         free_lnugGPs=host(params.lnugGPs))
+                if writer:
+                    np.savez(checkpoint_path, step=step, loss=loss,
+                             free_lLmb=host(params.lLmb),
+                             free_lLmb0=host(params.lLmb0),
+                             free_lsigma2s=host(params.lsigma2s),
+                             free_lnugGPs=host(params.lnugGPs))
                 if user_cb is not None:
                     user_cb(step, loss, params)
 
             kwargs['callback'] = _ckpt_cb
 
-        if kwargs.pop('mesh', None) is not None:
-            raise NotImplementedError(
-                "fit(mesh=...) is not ported yet (ROADMAP.md Queue 1 "
-                "item 17)")
+        if mesh is not None:
+            return self._fit_mesh(mesh, verbose, method, **kwargs)
         if method == 'auto':
             if self.n >= self._AUTO_ONDEVICE_N:
                 if self.precision == 'fast':
@@ -665,6 +747,63 @@ class LCGP:
             print(f'[lcgp_tpu_torch.fit] converged: stop_reason={reason!r} '
                   f'nit={int(res.nit)} loss={float(res.fun):.8g}')
         return res
+
+    def _fit_mesh(self, mesh, verbose, method, **kwargs):
+        from ..parallel import mesh as mesh_mod
+        from ..parallel import nshard
+        axes = tuple(mesh.axis_names)
+        if nshard.is_n_mesh(mesh):
+            return self._fit_nsharded(mesh, verbose, method, **kwargs)
+        if axes != ('comp', 'out'):
+            raise ValueError(
+                "fit(mesh=...) needs axis names ('n',), ('comp','n') or "
+                f"('comp','out'); got {axes!r}.  Build one with "
+                'parallel.make_mesh, parallel.nshard.make_n_mesh or '
+                'parallel.nshard.make_nc_mesh.')
+        if self._z is not None:
+            raise ValueError(
+                "inducing-point (FITC) models don't support the "
+                "('comp','out') mesh (parallel.fit_sharded optimizes the "
+                "exact loss)")
+        self._check_mesh_device(mesh)
+        opts = dict(compute_dtype=self._compute_dtype, jitter=self._jitter,
+                    kernel=self.kernel)
+        if method not in ('auto', 'adam'):
+            self._run_optimizer(mesh_mod.make_sharded_loss(
+                mesh, self._data, **opts), method, verbose, **kwargs)
+            return
+        kwargs.setdefault('verbose', verbose or self.verbose)
+        free, res = mesh_mod.fit_sharded(self._data, self._free, mesh,
+                                         **opts, **kwargs)
+        self._free = free
+        self._params_version += 1
+        self._fit_result = res
+
+    def _fit_nsharded(self, mesh, verbose=False, method='auto', **kwargs):
+        """Fit with the n axis distributed over an ('n',) or ('comp','n')
+        mesh: the loss and gradient of ``parallel/nshard.py``, under the
+        single-device optimizer loop (callbacks and checkpoints included).
+        Attaches the mesh (:meth:`set_mesh`).  precision='mixed' runs in
+        f64 here; 'fast' runs in f32."""
+        from ..parallel import nshard
+        self.set_mesh(mesh)
+        loss_fn = nshard.make_loss(self.submethod, self._data, mesh,
+                                   compute_dtype=self._compute_dtype,
+                                   jitter=self._jitter, kernel=self.kernel)
+        if method == 'auto':
+            if self.precision == 'fast':
+                method = 'lbfgs-jax'
+                kwargs.setdefault('plateau_rtol', 1e-8)
+            else:
+                method = 'scipy'
+                kwargs.setdefault('plateau_patience', 20)
+                kwargs.setdefault('plateau_rtol', 1e-8)
+                kwargs.setdefault('maxiter', 2000)
+            if verbose or self.verbose:
+                print(f'[lcgp_tpu_torch.fit] n-sharded over '
+                      f'{mesh.size_total} ranks; auto-selected '
+                      f'method={method!r}')
+        return self._run_optimizer(loss_fn, method, verbose, **kwargs)
 
     @staticmethod
     def _norm_ckpt_path(path):
@@ -770,12 +909,21 @@ class LCGP:
     # Prediction
     # ------------------------------------------------------------------
     def _ensure_aux(self):
-        """The predictive aux (FullAux, RepAux or FitcAux) at the current
-        parameters, rebuilt after any parameter change.  FITC under
-        'mixed' builds it in f64: its (m, m) systems are f64 by design."""
+        """The predictive aux (FullAux, RepAux, FitcAux or, on an n-mesh,
+        NShardAux) at the current parameters, rebuilt after any parameter
+        change.  FITC and the n-mesh under 'mixed' build it in f64: FITC's
+        (m, m) systems are f64 by design, and the distributed factor takes
+        no refinement."""
         if self._aux is None or self._aux_version != self._params_version:
             self._aux = None   # free the old factor before building the new
-            if self._z is not None:
+            if self._n_mesh is not None:
+                from ..parallel import nshard
+                self._aux = nshard.compute_aux_nsharded(
+                    self._free, self._data, self._n_mesh,
+                    compute_dtype=(None if self.precision == 'mixed'
+                                   else self._compute_dtype),
+                    jitter=self._jitter, kernel=self.kernel)
+            elif self._z is not None:
                 aux_dtype = (None if self.precision == 'mixed'
                              else self._compute_dtype)
                 self._aux = sparse.compute_aux_fitc(
@@ -798,19 +946,38 @@ class LCGP:
 
     # The aux accessors of lcgp_tpu (lcgp.py:1066-1152); each returns None
     # on the submethod it does not belong to, and every dense factor's
-    # returns None on an inducing-point model.
+    # returns None on an inducing-point model.  On an n-mesh the factor and
+    # dual weights are gathered from the ranks (a collective) and trimmed of
+    # the n padding and of the 'comp' axis's q padding.
     @property
     def CinvMs(self):
         """(q, n) dual weights (FITC's ``u``)."""
         aux = self._ensure_aux()
+        if self._n_mesh is not None:
+            from ..parallel import nshard
+            u = nshard.gather_u(self._n_mesh, aux)
+            return u[:int(self.q), :int(self.n)]
         return aux.u if self._z is not None else aux.CinvM
+
+    def _dense_factor(self):
+        """The (q, n, n) factor on every path: on an n-mesh gathered and
+        trimmed (the leading block of the padded factor is the unpadded
+        factor, its pad rows decoupled identity rows, and the padded
+        components trail)."""
+        aux = self._ensure_aux()
+        if self._n_mesh is not None:
+            from ..parallel import nshard
+            n = int(self.n)
+            L = nshard.gather_factor(self._n_mesh, aux)
+            return L[:int(self.q), :n, :n]
+        return aux.LB if self.submethod != 'rep' else aux.LT
 
     @property
     def LBs(self):
         """Full path: chol(I + D_k C_k), the factor the predictions use."""
         if self.submethod == 'rep' or self._z is not None:
             return None
-        return self._ensure_aux().LB
+        return self._dense_factor()
 
     @property
     def Ths(self):
@@ -819,7 +986,7 @@ class LCGP:
         batched eigh.  The predictions never form it."""
         if self.submethod == 'rep' or self._z is not None:
             return None
-        LB = self._ensure_aux().LB
+        LB = self._dense_factor()
         wB, U = torch.linalg.eigh(LB @ LB.mT)           # B = U diag(wB) U^T
         scal = torch.sqrt(self.diag_D[:, None].to(wB.dtype) / wB)
         return torch.einsum('qij,qj,qkj->qik', U, scal, U)
@@ -829,7 +996,7 @@ class LCGP:
         """Rep path: chol(C_k + diag(1/(d_k r)))."""
         if self.submethod != 'rep' or self._z is not None:
             return None
-        return self._ensure_aux().LT
+        return self._dense_factor()
 
     @property
     def Tks(self):
@@ -837,21 +1004,24 @@ class LCGP:
         (C_k + (d_k R)^{-1})^{-1}, rebuilt from ``LTs`` on access."""
         if self.submethod != 'rep' or self._z is not None:
             return None
-        LT = self._ensure_aux().LT
+        LT = self._dense_factor()
         eye = torch.eye(LT.shape[-1], dtype=LT.dtype, device=LT.device)
         return linalg.cho_solve(LT, eye.expand_as(LT))
 
     @property
     def mks(self):
-        """Rep path: (q, n) latent means at the training sites."""
-        if self.submethod != 'rep' or self._z is not None:
+        """Rep path: (q, n) latent means at the training sites (None on an
+        n-mesh, which does not form them)."""
+        if self.submethod != 'rep' or self._z is not None \
+                or self._n_mesh is not None:
             return None
         return self._ensure_aux().mks
 
     @property
     def psi_c(self):
-        """Rep path: (q, p) Phi^T Sigma_used^{-1/2}."""
-        if self.submethod != 'rep' or self._z is not None:
+        """Rep path: (q, p) Phi^T Sigma_used^{-1/2} (None on an n-mesh)."""
+        if self.submethod != 'rep' or self._z is not None \
+                or self._n_mesh is not None:
             return None
         return self._ensure_aux().psi_c
 
@@ -930,6 +1100,12 @@ class LCGP:
             _, count, worst = sparse.clamp_variance(stats_src)
             self._record_clamp_stats(count, worst, stats_src.numel())
             return ghat, torch.clamp_min(gvar, 0.0)
+        if self._n_mesh is not None:
+            from ..parallel import nshard
+            return nshard.predict_nsharded_core(
+                self._free, self._data, aux, x0s, self._n_mesh,
+                compute_dtype=self._compute_dtype, jitter=self._jitter,
+                kernel=self.kernel)
         core = (pred.predict_rep_core if self.submethod == 'rep'
                 else pred.predict_full_core)
         return core(self._free, self._data, aux, x0s,
@@ -975,6 +1151,13 @@ class LCGP:
     # Persistence: the npz format of lcgp_tpu.LCGP.save/load
     # ------------------------------------------------------------------
     def save(self, path):
+        """Write the npz of ``lcgp_tpu.LCGP.save``.  On an n-mesh (a
+        collective) the mesh's first rank writes and every rank waits for
+        it: the parameters are alike on every rank."""
+        mesh = self._n_mesh
+        if mesh is not None and not mesh.is_first:
+            mesh.barrier()
+            return
         lLmb, lLmb0, lsig_g, lnug = P.constrain(self._free)
         cfg = dict(q=int(self.q), var_threshold=self.var_threshold,
                    diag_error_structure=list(self.diag_error_structure),
@@ -1003,6 +1186,8 @@ class LCGP:
                  free_lnugGPs=host(self._free.lnugGPs),
                  lLmb=host(lLmb), lLmb0=host(lLmb0),
                  lsigma2s=host(lsig_g), lnugGPs=host(lnug))
+        if mesh is not None:
+            mesh.barrier()
 
     @classmethod
     def load(cls, path, device='cuda'):

@@ -240,12 +240,11 @@ class PredictServer:
     def _static_sig(model):
         """Trace-relevant model config: two models with equal signatures
         share one fused function (and, with equal state shapes, one
-        captured graph).  The port's models have no mesh yet: ``_n_mesh``
-        reads as None."""
+        captured graph).  ``_n_mesh`` is the model's n-mesh (None off a
+        mesh); a server refuses a mesh model (:meth:`_latent_core`)."""
         return (model.submethod, model.kernel, str(model._compute_dtype),
                 float(model._jitter), model.q_chunk, model._z is not None,
-                getattr(model, '_n_mesh', None),
-                bool(model.rep_standardize_ybar))
+                model._n_mesh, bool(model.rep_standardize_ybar))
 
     @staticmethod
     def _extract_state(model):
@@ -295,10 +294,11 @@ class PredictServer:
                     compute_dtype=cdtype, kernel=kernel)
                 return ghat, torch.clamp_min(gvar, 0.0)
             return core
-        if getattr(model, '_n_mesh', None) is not None:
+        if model._n_mesh is not None:
+            # on a mesh every rank must follow rank 0's dispatches
             raise NotImplementedError(
                 'serving an n-sharded (mesh) model is not ported yet '
-                '(ROADMAP.md item 17, multi-device)')
+                '(ROADMAP.md item 17d, serving a mesh model)')
         fn = (pred.predict_rep_core if model.submethod == 'rep'
               else pred.predict_full_core)
 

@@ -1549,3 +1549,114 @@ def test_served_state_survives_a_fit_on_the_model(dev):
         _normwise(srv.predict(x0), fitted, 1e-10)
     finally:
         srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The mesh paths (lcgp_tpu_torch/parallel) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('kind', ['matern32', 'matern52', 'rbf'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_block_row_gram_and_cross_vjp_at_a_ragged_block(dev, kind, dtype):
+    """The n-sharded path's kernel shapes: a rank's Gram rows (q, nb, n)
+    through the Gram kernel's cross mode, and the VJP in cross mode at an
+    explicit cotangent of that shape, at a ragged block (nb = 333 of
+    n = 999), against the plain versions."""
+    from lcgp_tpu_torch.ops.launch import FAMILIES
+    fam = FAMILIES[kind]
+    x, _, ls, amp, nug = _inputs(dev, 77, 999, 1, 8, 5, dtype)
+    xblk = x[333:666].contiguous()
+    got = fam.gram(xblk, x, ls, amp, nug, same=False)
+    args = [t.double() for t in (xblk, x, ls, amp, nug)]
+    ref = fam.plain(*args, same=False)
+    M = torch.randn((5, 333, 999), generator=torch.Generator(
+        device=dev).manual_seed(7), dtype=dtype, device=dev)
+    gv = fam.launch_vjp(xblk, x, ls, amp, nug, same=False, M=M)
+    ref_v = fam.vjp_plain(*args, same=False, cbar=M.double())
+    scale = fam.scale(*args, same=False, cbar=M.double())
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got.double(), ref, rtol=tol, atol=tol)
+    _assert_vjp_close(gv, ref_v, scale, VJP_BOUND[dtype])
+
+
+def _mesh_problem(n=300, p=12, q=3, d=3, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, d))
+    y = (np.sin(3 * x[:, :1].T + np.linspace(0, 2, p)[:, None])
+         + 0.05 * rng.standard_normal((p, n)))
+    return x, y, rng.uniform(0, 1, (16, d))
+
+
+def _single_device(dev, x, y, x0, **ctor):
+    m = lcgp_tpu_torch.LCGP(y=y, x=x, device=dev, **ctor)
+    free = [t.cpu().numpy() for t in m.free]
+    leaves = type(m.free)(*(t.clone().requires_grad_(True) for t in m.free))
+    m_loss = (m.neglpost_rep if m.submethod == 'rep' else m.neglpost)
+    m._free = leaves
+    v = m_loss()
+    grads = [g.cpu().numpy() for g in torch.autograd.grad(v, leaves)]
+    m.free = free
+    preds = [t.cpu().numpy() for t in m.predict(x0)]
+    return free, float(v.detach()), grads, preds
+
+
+def _mesh_vs_single(group, dev, spec, **ctor):
+    from lcgp_tpu_torch.parallel import tasks
+    x, y, x0 = _mesh_problem()
+    free, v, grads, preds = _single_device(dev, x, y, x0, **ctor)
+    results = group.run(tasks.model, spec, x, y, ctor, [
+        ('set_free', free), ('set_mesh', None), ('loss', None),
+        ('predict', x0)], device=str(dev))
+    for r in results:
+        _, _, loss, got = r
+        np.testing.assert_allclose(loss, v, rtol=1e-9)
+        for g, ref in zip(got, preds):
+            np.testing.assert_allclose(g, ref, rtol=0,
+                                       atol=1e-7 * np.abs(ref).max())
+    data = {k: t.cpu().numpy() for k, t in
+            lcgp_tpu_torch.LCGP(y=y, x=x, device=dev,
+                                **ctor)._data._asdict().items()}
+    for r in group.run(tasks.loss_and_grad, spec, data, free,
+                       device=str(dev)):
+        np.testing.assert_allclose(r[0], v, rtol=1e-9)
+        for g, ref in zip(r[1], grads):
+            np.testing.assert_allclose(g, ref, rtol=0,
+                                       atol=1e-8 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('submethod', ['full', 'rep'])
+def test_nccl_world_of_one_n_mesh_matches_single_device(dev, submethod):
+    """A one-rank NCCL group on the card: the n-mesh loss, gradient and
+    predictions against the single-device path on the card."""
+    from lcgp_tpu_torch.parallel import WorkerGroup
+    with WorkerGroup(1, device=str(dev), backend='nccl', timeout=300) as g:
+        _mesh_vs_single(g, dev, ('n', 1), q=3, submethod=submethod)
+
+
+def test_two_gloo_ranks_sharing_the_card(dev):
+    """Two gloo ranks that compute on one card, their collectives staged
+    through the host: the ('n',) and the ('comp','n') meshes against the
+    single-device path."""
+    from lcgp_tpu_torch.parallel import WorkerGroup
+    with WorkerGroup(2, device=str(dev), backend='gloo', timeout=300) as g:
+        _mesh_vs_single(g, dev, ('n', 2), q=3)
+        _mesh_vs_single(g, dev, ('nc', 2, 1), q=3)
+
+
+def test_worker_group_defaults_to_the_card(dev):
+    """WorkerGroup and the dryrun default to this process's card: NCCL
+    takes one card per rank, so ranks sharing it must ask for gloo."""
+    from lcgp_tpu_torch.parallel import WorkerGroup
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        WorkerGroup(2)
+    with WorkerGroup(1, timeout=300) as g:
+        assert g.device == torch.device('cuda', torch.cuda.current_device())
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    """The dryrun's default: two gloo ranks sharing the card, every mesh
+    mode against one device on the card."""
+    from lcgp_tpu_torch.parallel import dryrun
+    got = dryrun.dryrun_multichip(2)
+    assert got['modes'] == ['comp_out', 'n']

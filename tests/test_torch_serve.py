@@ -327,7 +327,7 @@ class TestHotReload:
             _n_mesh = object()
             _compute_dtype, _jitter = None, 0.0
             kernel, q_chunk, submethod = 'matern32', None, 'full'
-        with pytest.raises(NotImplementedError, match='item 17'):
+        with pytest.raises(NotImplementedError, match='item 17d'):
             srv._latent_core(Meshed())
 
 
