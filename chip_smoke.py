@@ -151,6 +151,37 @@ Phases, each printing its own lines:
    ``launches_per_call["mesh_loss_grad"]``; the block rows take the
    ('n',) 4 ranks' launches at their shape, the config-4 rows every other
    mesh launch, each launch counted on one row only.
+14. n-sharded FITC (``lcgp_tpu_torch/parallel/fitc_shard.py``) at
+   benchmarks/run_configs.py's config 7 (n=400,000, m=512, d=2, p=20, q=4,
+   'fast', farthest-point inducing points chosen once) and served mesh
+   models (``serve.py``'s ``follow()``): first a world of one NCCL rank in
+   this process: the ('n',) mesh's loss+grad at the init against one
+   device's dense FITC (loss within 1e-12 relative, each gradient leaf
+   within 1e-6 of its max |g|), the aux and a 64-point predict (1e-6),
+   ``refine_inducing(steps=5)`` with K5 launched 3 times a step, the warm
+   loss+grad and the memory one takes; config 4's exact model at the
+   committed fit served on that mesh (request p50 and p95, held to the mesh
+   ``model.predict`` and one device's).  K1, K2 and K5 at the ('n',) 4
+   block, (4, 100000, 512) with d=2, f32 and f64, against their plain
+   versions, timed with their bounds.  Then four gloo ranks sharing the
+   card on ('n',) 4 and ('comp','n') 2x2 at config 7: an f64 loss+grad
+   against one device's f64 (loss 1e-9 relative, gradient leaves 1e-7 of
+   their max |g|); each rank's 'fast' loss+grad, aux and predict the same
+   bits on every rank and held to one device's f64 answer (within 4x one
+   device's own 'fast' error), a
+   2-step Adam fit (and on ('n',) 4 ``refine_inducing(steps=2)``) whose
+   parameters and z are the same bits on every rank, seconds, staged
+   bytes, and a rank's loss+grad memory under half the one NCCL rank's;
+   then config 4's exact model and config 6's 'fast' FITC model served on
+   ('n',) 4 (followers in ``follow()``), held to the mesh
+   ``model.predict``, with coalesced clients, a refused bad request and
+   request p50 and p95.  New rows ``matern32_gram_fitc_block``,
+   ``matern32_gram_vjp_fitc_block`` and ``gram_vjp_x_fitc_block`` (f32 in
+   the main keys, f64 under ``*_f64``); every launch of the phase is filed
+   on one row by shape (``launches_fitc_mesh_by_shape``): the block rows
+   take the ('n',) 4 ranks' f32 launches at the block, the FITC rows of
+   phase 11 the other FITC launches by dtype, the config-4 K1 row the
+   served exact model's.
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -162,11 +193,11 @@ checkouts' kernels and times each kernel of both in turns, f64 and f32:
 K1, K2, K3, K4 (Gram and VJP) at config 4's square and fused shapes and
 at FITC's (4, 50000, 256) (Knm, a random cross cotangent), K1 at the
 request shape, and K5 of every family at FITC's shape.  It fails unless
-K1, K2, K3 (Gram and VJP) and K4's Gram give the other's bits, and unless
-K4's VJP and K5, the kernels redesigned against the parent
-(``AGAINST_REDESIGNED``), are within their bounds of their plain versions
-and give the same bits on two launches; it holds K3's Gram at the fitted
-config-4 lengthscales, K3's and K4's fused VJP (component 0) and K4's
+every kernel gives the other's bits (a kernel redesigned against the
+parent, listed in ``AGAINST_REDESIGNED``, is held within its bounds of
+its plain version and to the same bits on two launches instead); it
+holds K3's Gram at the fitted config-4 lengthscales, K3's and K4's fused
+VJP (component 0) and K4's
 fused VJP at the fitted parameters (the components at the 1e-6 floor)
 against extended precision, prints one JSON line and stops; a kernel the
 other checkout lacks is left out.  Imports nothing of JAX.
@@ -4064,6 +4095,555 @@ def phase_mesh_shared(dev, card, x, y, xte, free_np, peak1, counts):
     return per_rank, cut
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: n-sharded FITC (parallel/fitc_shard.py) at config 7 and served
+# mesh models (serve.py's follow())
+# ---------------------------------------------------------------------------
+
+FITC_MESH_RANKS = 4
+# the 4-rank run's meshes: ('n',) 4 and ('comp','n') 2x2
+FITC_MESH_SPECS = (("n", 4), ("nc", 2, 2))
+FITC_MESH_REFINE_STEPS = 5
+SERVE_MESH_REQUESTS = 30
+# 'fast' (f32 panel work): the one-rank refine's loss within this of one
+# device's (relative)
+FITC_MESH_RTOL = 1e-5
+# the four ranks reorder f32 sums over n: each of their answers (loss,
+# gradient leaf, output) is held to the f64 ('high') one-device answer,
+# within this many times one device's own 'fast' error against it (at
+# least 1e-6 of the f64 answer's largest entry)
+FITC_MESH_ERR_RATIO = 4.0
+# the same loss+grad in f64 on the four ranks against one device's f64:
+# the loss relative, each gradient leaf as a share of its max |g| (the
+# sums reordered over n; 'fast''s error shows M = I + G amplifying its
+# rounding some thousand times at config 7's init)
+FITC_MESH_F64_LOSS_RTOL = 1e-9
+FITC_MESH_F64_GRAD_RTOL = 1e-7
+# the kernel rows the phase's launches are filed on: the FITC rows of
+# phase 11 by dtype, and at the ('n',) 4 block's f32 shape the block rows
+FITC_ROWS_F64 = ("matern32_gram_fitc", "matern32_gram_vjp_fitc",
+                 "matern32_gram_vjp_x")
+FITC_ROWS_F32 = tuple(f"{r}_f32" for r in FITC_ROWS_F64)
+FITC_ROWS_BLOCK = ("matern32_gram_fitc_block",
+                   "matern32_gram_vjp_fitc_block", "gram_vjp_x_fitc_block")
+
+
+class FitcMeshCounts:
+    """Phase 14's launches on the main path by kernel row and shape:
+    ``rows`` maps a row name to {shape label: launches}.  A delta is
+    ``tasks._fitc_launches``' six counts, (Gram, VJP, K5) f64 then f32."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, row, label, n):
+        if n:
+            by = self.rows.setdefault(row, {})
+            by[label] = by.get(label, 0) + n
+
+    def add_fitc(self, delta, f64_label, f32_label, f32_rows=FITC_ROWS_F32):
+        for i in range(3):
+            self.add(FITC_ROWS_F64[i], f64_label, delta[2 * i])
+            self.add(f32_rows[i], f32_label, delta[2 * i + 1])
+
+    def call(self, f64_label, f32_label, fn):
+        from lcgp_tpu_torch.parallel.tasks import _fitc_launches
+        before = _fitc_launches("matern32")
+        out = fn()
+        self.add_fitc(tuple(b - a for a, b in
+                            zip(before, _fitc_launches("matern32"))),
+                      f64_label, f32_label)
+        return out
+
+    def total(self, row):
+        return sum(self.rows.get(row, {}).values())
+
+
+def fitc7_inputs():
+    """Config 7's data, a 64-point request and its inducing points in x's
+    units: the farthest-point rows of the standardized design, chosen once
+    here so that every model of the phase takes the same bits."""
+    from lcgp_tpu_torch.models.sparse import select_inducing
+    x, y, xte, _, kw = fitc_config(7)
+    x_min, x_max = x.min(0), x.max(0)
+    z = select_inducing((x - x_min) / (x_max - x_min), kw["inducing"])
+    return x, y, xte[:64], z * (x_max - x_min) + x_min
+
+
+def fitc7_model(dev, x, y, z_orig, precision="fast"):
+    from lcgp_tpu_torch import LCGP
+    return LCGP(y, x, q=4, inducing=z_orig, n_chunk=0, precision=precision,
+                device=dev)
+
+
+def phase_fitc_mesh_one_rank(dev, card, counts):
+    """Phase 14, part 1: a world of one NCCL rank in this process.  At
+    config 7 'fast' on the ('n',) mesh against one device's dense FITC:
+    a loss+grad at the init (loss within 1e-12 relative, gradient leaves
+    within 1e-6 of their max |g|), the aux (each field within 1e-6 of its
+    largest entry) and a 64-point predict (1e-6), then
+    ``refine_inducing(steps=5)`` (K5 launched 3 times a step; its loss
+    within FITC_MESH_RTOL of one device's), the warm loss+grad seconds and
+    the memory one takes beyond the resident bytes.  Then config 4's exact
+    model at the committed fit served on the ('n',) mesh (request p50 and
+    p95, held to the mesh ``model.predict`` and one device's).  Returns
+    (the one-device reference at the init, that memory, the serving
+    summary)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from lcgp_tpu_torch.parallel import init_distributed, nshard
+
+    tag = f"[{card}]"
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    init_distributed("nccl", dev, rank=0, world_size=1,
+                     store=dist.FileStore(os.path.join(store, "s"), 1))
+    try:
+        nmesh = nshard.make_n_mesh(device=dev)
+        x, y, x0, z_orig = fitc7_inputs()
+        single = fitc7_model(dev, x, y, z_orig)
+        meshed = fitc7_model(dev, x, y, z_orig)
+        meshed.set_mesh(nmesh)
+        check(torch.equal(single._z, meshed._z), "the mesh model's z differs")
+        vg_s, z0, flat = flat_vg(single._loss_fn(), single.free)
+        vg_m = flat_vg(meshed._loss_fn(), meshed.free)[0]
+        kmm, knm = "Kmm (4, 512, 512)", f"Knm (4, {x.shape[0]}, 512)"
+        ref = dict(vg=vg_s(z0), flat=flat, z=single._z.cpu().numpy(),
+                   free=[t.cpu().numpy() for t in single.free],
+                   data={k: t.cpu().numpy() for k, t in
+                         single._data._asdict().items()})
+        got = counts.call(kmm, knm, lambda: vg_m(z0))
+        (v, g), (vr, gr) = got, ref["vg"]
+        rel = abs(v - vr) / abs(vr)
+        say(f"  ('n',) 1 rank, config 7 'fast' at the init: loss {v:.17e} vs "
+            f"one device {vr:.17e}, rel {rel:.3e} (bound 1e-12), the same "
+            f"bits: {v == vr}")
+        check(rel <= 1e-12, "the one-rank FITC mesh loss differs from one "
+              "device's")
+        compare_grads("('n',) 1 rank FITC gradient", torch.as_tensor(g),
+                      torch.as_tensor(gr), flat, 1e-6)
+        t_s = [timed_s(lambda: vg_s(z0)) for _ in range(3)]
+        t_m = [timed_s(lambda: counts.call(kmm, knm, lambda: vg_m(z0)))
+               for _ in range(3)]
+        say(f"  {tag} config 7 'fast' warm loss+grad: ('n',) 1 rank "
+            f"{statistics.median(t_m):.4f} s, one device "
+            f"{statistics.median(t_s):.4f} s (medians of 3)")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        counts.call(kmm, knm, lambda: vg_m(z0))
+        peak1 = torch.cuda.max_memory_allocated() - resident
+        say(f"  {tag} one loss+grad's memory on the one rank: "
+            f"{peak1 / 1e9:.3f} GB beyond {resident / 1e9:.3f} GB resident")
+
+        a_s = single._ensure_aux()
+        t_aux = timed_s(lambda: counts.call(
+            kmm, knm, meshed.compute_aux_predictive_quantities))
+        say(f"  {tag} ('n',) 1 rank FITC aux: {t_aux:.4f} s")
+        for name in ("Lmm", "alpha", "inner", "u"):
+            compare_normwise(f"('n',) 1 rank aux {name} vs one device",
+                             getattr(meshed._aux, name), getattr(a_s, name),
+                             1e-6)
+        ref["predict"] = [t.cpu().numpy() for t in single.predict(x0)]
+        got = counts.call(kmm, "request (4, 64, 512)",
+                          lambda: meshed.predict(x0))
+        for name, a, b in zip(("ypred", "ypredvar", "yconfvar"), got,
+                              ref["predict"]):
+            compare_normwise(f"('n',) 1 rank 64-point {name}", a.cpu(),
+                             torch.as_tensor(b), 1e-6)
+        del a_s, got
+
+        steps = FITC_MESH_REFINE_STEPS
+        before = counts.total(FITC_ROWS_F64[2]) + counts.total(
+            FITC_ROWS_F32[2])
+        t0 = time.perf_counter()
+        l_m = counts.call(kmm, knm, lambda: meshed.refine_inducing(
+            steps=steps, learning_rate=1e-3))
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        k5 = counts.total(FITC_ROWS_F64[2]) + counts.total(
+            FITC_ROWS_F32[2]) - before
+        l_s = single.refine_inducing(steps=steps, learning_rate=1e-3)
+        rel = abs(l_m - l_s) / abs(l_s)
+        say(f"  {tag} refine_inducing(steps={steps}) on the one rank: "
+            f"{t_ref:.3f} s, loss {l_m:.10e} vs one device {l_s:.10e} (rel "
+            f"{rel:.3e}), K5 launches {k5} (3 a step)")
+        check(k5 == 3 * steps, f"refine_inducing launched K5 {k5} times")
+        check(rel <= FITC_MESH_RTOL, "refine_inducing on the mesh differs "
+              "from one device")
+        del single, meshed
+        torch.cuda.empty_cache()
+        # the four ranks' yardstick: one device in f64 at the init
+        high = fitc7_model(dev, x, y, z_orig, precision="high")
+        ref["vg64"] = flat_vg(high._loss_fn(), high.free)[0](z0)
+        ref["predict64"] = [t.cpu().numpy() for t in high.predict(x0)]
+        del high
+        torch.cuda.empty_cache()
+        serve = phase_serve_mesh_one_rank(dev, card, nmesh, counts)
+        return ref, x0, z_orig, peak1, serve
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_mesh_one_rank(dev, card, nmesh, counts):
+    """Phase 14, part 1: config 4's exact model at the committed fit on
+    the one-rank ('n',) mesh behind ``PredictServer`` (its step eager, its
+    dispatches broadcast to a mesh of one): 64-point requests against the
+    mesh ``model.predict`` (1e-10 of each output's largest entry) and one
+    device's (1e-7), then SERVE_MESH_REQUESTS timed.  Returns the p50 and
+    p95 ms."""
+    import torch
+    from lcgp_tpu_torch import LCGP
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    from lcgp_tpu_torch.ops.launch import family
+    from lcgp_tpu_torch.serve import PredictServer
+    x, y, xte, _ = config4()
+    with np.load(FITTED, allow_pickle=False) as z:
+        free_np = tuple(z[k] for k in ("lLmb", "lLmb0", "lsigma2s",
+                                       "lnugGPs"))
+    fitted = free_params_from_numpy(*free_np, dev)
+    x0 = xte[:64]
+    single = LCGP(y, x, q=20, device=dev)
+    single.free = fitted
+    one = [t.cpu() for t in single.predict(x0)]
+    del single
+    k1 = family("matern32").gram
+    m = LCGP(y, x, q=20, device=dev)
+    m.free = fitted
+    m.set_mesh(nmesh)
+    c0 = k1.launches
+    ref = [t.cpu() for t in m.predict(x0)]
+    srv = PredictServer(m, batch_size=64)
+    served = srv.predict(x0)
+    lat = [1e3 * timed_s(lambda: srv.predict(x0))
+           for _ in range(SERVE_MESH_REQUESTS)]
+    srv.shutdown()
+    counts.add("matern32_gram", "served config 4, ('n',) 1: the aux's "
+               "rows (20, 4096, 4096) and requests (20, 64, 4096)",
+               k1.launches - c0)
+    for name, a, b, c in zip(("ypred", "ypredvar", "yconfvar"), served,
+                             ref, one):
+        compare_normwise(f"served ('n',) 1 config 4 {name} vs the mesh "
+                         "model.predict", torch.as_tensor(a), b, 1e-10)
+        compare_normwise(f"served ('n',) 1 config 4 {name} vs one device",
+                         torch.as_tensor(a), c, 1e-7)
+    p50, p95 = p50_p95(lat)
+    say(f"  [{card}] served config 4 on the one-rank ('n',) mesh (eager "
+        f"step): 64-point request p50 {p50:.3f} ms, p95 {p95:.3f} ms (of "
+        f"{len(lat)})")
+    return dict(exact_one_rank_p50_ms=p50, exact_one_rank_p95_ms=p95)
+
+
+def phase_fitc_block_kernels(dev, card, x, z_orig):
+    """Phase 14, part 2: K1 (Knm), K2 (cross mode at a random cotangent)
+    and K5 at the ('n',) 4 block of config 7, (4, 100000, 512) with d=2,
+    f32 (the path's) and f64, against their plain versions, timed in turns
+    with their bounds.  Returns the three kernel records, f32 in the main
+    keys, f64 under ``*_f64``."""
+    import torch
+    from lcgp_tpu_torch.ops._build import build
+    lib = build().lib
+    fam = family_of("matern32")
+    x_min, x_max = x.min(0), x.max(0)
+    nb = x.shape[0] // FITC_MESH_RANKS
+    xs = torch.as_tensor((x[nb:2 * nb] - x_min) / (x_max - x_min),
+                         device=dev)
+    z = torch.as_tensor((z_orig - x_min) / (x_max - x_min), device=dev)
+    q, n, d, m = 4, xs.shape[0], xs.shape[1], z.shape[0]
+    rng = np.random.default_rng(61)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        tag, size = ("f64", 8) if dt == torch.float64 else ("f32", 4)
+        rtol, atol = ((F64_RTOL, F64_ATOL) if dt == torch.float64
+                      else (F32_RTOL, F32_ATOL))
+        vjp_bound = VJP_BOUND if dt == torch.float64 else VJP_BOUND_F32
+        rate = F64_INSTR_PER_S if dt == torch.float64 else F32_INSTR_PER_S
+        ls, amp, nug = moderate_params(rng, q, d, dev, torch.float64)
+        ls = ls * 0.1
+        x1, x2, ls_, amp_, nug_ = (t.to(dt).contiguous()
+                                   for t in (xs, z, ls, amp, nug))
+        M = torch.randn((q, n, m), generator=torch.Generator(
+            device=dev).manual_seed(62), dtype=dt, device=dev)
+        b64 = [t.double() for t in (x1, x2, ls_, amp_, nug_)]
+        ins = (x1.numel() + x2.numel() + ls_.numel() + 2 * q) * size
+        lab = f"{tag} (q={q}, nb={n}, m={m}, d={d})"
+        err_g = compare(f"K1 at the ('n',) 4 block {lab} vs plain f64",
+                        fam.launch(x1, x2, ls_, amp_, nug_, same=False)[0],
+                        fam.plain(*b64, same=False), rtol, atol)
+        t_g = time_pair(f"K1 block {lab}",
+                        raw_gram(lib, x1, x2, ls_, amp_, nug_, False),
+                        lambda: fam.plain(x1, x2, ls_, amp_, nug_,
+                                          same=False),
+                        q * n * m * size, plain_reps=3)
+        b_g = say_bound(f"K1 block {tag}", t_g[0], q * n * m * size + ins,
+                        q * n * m * k1_ops_per_entry(d, False), rate)
+        got = fam.launch_vjp(x1, x2, ls_, amp_, nug_, same=False, M=M)
+        again = fam.launch_vjp(x1, x2, ls_, amp_, nug_, same=False, M=M)
+        ref = fam.vjp_plain(*b64, same=False, cbar=M.double())
+        scale = fam.scale(*b64, same=False, cbar=M.double())
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"K2 at the block {lab}: two launches differ")
+        err_v = compare_vjp(f"K2 at a random block cotangent {lab} vs plain;"
+                            " two launches the same bits", got, ref, scale,
+                            vjp_bound=vjp_bound, kernel="K2")
+        t_v = time_pair(f"K2 block {lab}",
+                        raw_vjp(lib, x1, ls_, amp_, nug_, M, None, 0.0, None,
+                                x2=x2),
+                        lambda: fam.vjp_plain(x1, x2, ls_, amp_, nug_,
+                                              same=False, cbar=M),
+                        M.numel() * size, "read", plain_reps=3)
+        b_v = say_bound(f"K2 block {tag}", t_v[0],
+                        M.numel() * size + ins + q * (d + 2) * size,
+                        q * n * m * (k2_ops_per_entry(d) - 2), rate)
+        got = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
+        again = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
+        ref = fam.vjp_x_plain(*b64, M=M.double())
+        scale = fam.scale_x(*b64, M=M.double())
+        torch.cuda.synchronize()
+        err = (got.double() - ref).abs()
+        share = float((err / scale.clamp_min(1e-300)).max())
+        say(f"  K5 at the block {lab} vs plain: max_abs_err="
+            f"{float(err.max()):.3e}, max err/magnitude={share:.3e} (bound "
+            f"{vjp_bound:g}); two launches the same bits: "
+            f"{torch.equal(got, again)}")
+        check(bool(torch.isfinite(got).all()), "K5 at the block not finite")
+        check(bool((err <= vjp_bound * scale).all()),
+              f"K5 at the block {tag} outside {vjp_bound:g} x magnitude")
+        check(torch.equal(got, again), "K5 at the block is not "
+              "deterministic")
+        t_x = time_pair(f"K5 block {lab}",
+                        raw_vjp_x(lib, x1, x2, ls_, amp_, nug_, M,
+                                  "matern32"),
+                        lambda: fam.vjp_x_plain(x1, x2, ls_, amp_, nug_,
+                                                M=M),
+                        M.numel() * size, "read", plain_reps=3)
+        b_x = say_bound(f"K5 block {tag}", t_x[0],
+                        M.numel() * size + ins + m * d * size,
+                        q * n * m * k5_ops_per_entry("matern32", d), rate)
+        out[tag] = [(err_g, t_g, b_g), (err_v, t_v, b_v),
+                    (float(err.max()), t_x, b_x)]
+        say(f"  [{card}] at the ('n',) 4 block {lab}: K1 {t_g[0]:.4f} ms "
+            f"(plain {t_g[1]:.4f}, bound {b_g[0]:.4f}), K2 {t_v[0]:.4f} "
+            f"(plain {t_v[1]:.4f}, bound {b_v[0]:.4f}), K5 {t_x[0]:.4f} "
+            f"(plain {t_x[1]:.4f}, bound {b_x[0]:.4f})")
+        del M, got, again, ref, scale, err
+        torch.cuda.empty_cache()
+    shape = f"('n',) 4 block of config 7, q={q} nb={n} m={m} d={d}"
+    records = []
+    for i, (name, src, rep, what) in enumerate((
+            (FITC_ROWS_BLOCK[0], K1_SOURCE, K1_REPLACES, "Knm"),
+            (FITC_ROWS_BLOCK[1], K2_SOURCE, K2_REPLACES,
+             "random cross cotangent"),
+            (FITC_ROWS_BLOCK[2], K5_SOURCE, K5_REPLACES,
+             "(q, n, m) cotangent"))):
+        (e32, t32, b32), (e64, t64, b64_) = out["f32"][i], out["f64"][i]
+        records.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            max_abs_err=e32, ms=t32[0], plain_ms=t32[1], bound_ms=b32[0],
+            bound_by=b32[1], library_ms=None, max_abs_err_f64=e64,
+            ms_f64=t64[0], plain_ms_f64=t64[1], bound_ms_f64=b64_[0],
+            bound_by_f64=b64_[1], shape=f"{what}, f32 (f64 in *_f64), "
+                                        f"{shape}"))
+    return records
+
+
+def fitc_mesh_reference_check(spec, r, ref):
+    """A rank's config-7 'fast' answers at the init (the loss, each
+    gradient leaf, each 64-point output) against one device's f64 ones:
+    each error within FITC_MESH_ERR_RATIO times one device's own 'fast'
+    error (at least 1e-6 of the f64 answer's largest entry)."""
+    tag = f"{spec} rank {r['rank']}"
+
+    def leaves(vg):
+        v, g = vg
+        g = np.asarray(g, dtype=np.float64)
+        parts, start = [("loss", np.asarray([v]))], 0
+        for nm, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
+                            ref["flat"].sizes):
+            parts.append((f"gradient {nm}", g[start:start + size]))
+            start += size
+        return parts
+    got = leaves((r["loss"], r["grad"])) + list(zip(
+        ("ypred", "ypredvar", "yconfvar"), r["predict"]))
+    one = leaves(ref["vg"]) + list(zip(("ypred",) * 3, ref["predict"]))
+    f64 = leaves(ref["vg64"]) + list(zip(("ypred",) * 3, ref["predict64"]))
+    for (name, a), (_, b), (_, c) in zip(got, one, f64):
+        a, b, c = (np.asarray(t, dtype=np.float64) for t in (a, b, c))
+        top = float(np.abs(c).max())
+        e_mesh, e_one = (float(np.abs(t - c).max()) for t in (a, b))
+        bound = max(FITC_MESH_ERR_RATIO * e_one, 1e-6 * top)
+        say(f"  {tag} {name} vs one device's f64: error {e_mesh:.3e} "
+            f"({e_mesh / top:.3e} of its largest), one device's 'fast' "
+            f"{e_one:.3e}, bound {bound:.3e}")
+        check(e_mesh <= bound, f"{tag}: {name} beyond {bound:.3e} of one "
+              "device's f64 answer")
+
+
+def check_alike(what, results, key):
+    for r in results[1:]:
+        for u, v in zip(results[0][key], r[key]):
+            check(np.array_equal(u, v), f"{what}: the ranks' {key} differ")
+
+
+def phase_fitc_mesh_shared(dev, card, ref, x0, z_orig, peak1, counts):
+    """Phase 14, part 3: FITC_MESH_RANKS gloo ranks on one card, their
+    collectives staged through the host.  At config 7 on FITC_MESH_SPECS
+    (each rank the same inducing points): an f64 loss+grad at the init
+    against one device's f64; then 'fast', every rank's loss+grad, aux and
+    64-point predict against one device's f64 answers
+    (``fitc_mesh_reference_check``),
+    refine_inducing(steps=2) on ('n',) 4, a 2-step Adam ``fit(mesh=...)``
+    whose parameters and z are the same bits on every rank, the seconds,
+    staged bytes and memory of a loss+grad a rank (at ('n',) 4 under half
+    of part 1's one rank).  Then served mesh models: config 4's exact model
+    at the committed fit and config 6's 'fast' FITC model at its init, each
+    on ('n',) 4, with request p50 and p95 held to the mesh
+    ``model.predict`` taken before the server started.  Returns the
+    summary."""
+    import torch
+    from lcgp_tpu_torch.parallel import WorkerGroup, tasks
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    check(mode == "Default", f"{FITC_MESH_RANKS} contexts on one card need "
+          f"compute mode Default, not {mode}")
+    x, y, _, _, _ = fitc_config(7)
+    ctor = dict(q=4, inducing=z_orig, n_chunk=0, precision="fast")
+    summary = {}
+    torch.cuda.empty_cache()
+    with WorkerGroup(FITC_MESH_RANKS, device=str(dev), backend="gloo",
+                     timeout=900, collective_timeout=600) as group:
+        for spec in FITC_MESH_SPECS:
+            on_n = spec[0] == "n"
+            res = group.run(tasks.fitc_loss_and_grad, spec, ref["data"],
+                            ref["free"], ref["z"], device=str(dev))
+            check(all(r[0] == res[0][0] for r in res), f"{spec}: the ranks' "
+                  "f64 losses differ")
+            v, g = res[0]
+            rel = abs(v - ref["vg64"][0]) / abs(ref["vg64"][0])
+            say(f"  {spec} f64 loss+grad: loss {v:.15e} vs one device's f64 "
+                f"{ref['vg64'][0]:.15e}, rel {rel:.3e} (bound "
+                f"{FITC_MESH_F64_LOSS_RTOL:g})")
+            check(rel <= FITC_MESH_F64_LOSS_RTOL, f"{spec}: the f64 loss "
+                  "differs from one device's")
+            compare_grads(f"{spec} f64 gradient", torch.as_tensor(
+                np.concatenate([a.ravel() for a in g])),
+                torch.as_tensor(ref["vg64"][1]), ref["flat"],
+                FITC_MESH_F64_GRAD_RTOL)
+            del res, g
+            res = group.run(
+                tasks.measure_fitc, spec, x, y, ctor, x0, device=str(dev),
+                fit=dict(method="adam", steps=2, learning_rate=1e-2),
+                refine=dict(steps=2, learning_rate=1e-3) if on_n else None)
+            qc, nb = (4, x.shape[0] // 4) if on_n else (2, x.shape[0] // 2)
+            f64_l, f32_l = (f"Kmm ({qc}, 512, 512), {spec}",
+                            f"Knm ({qc}, {nb}, 512), {spec}")
+            # the ranks' answers are replicated: the same bits on each
+            for key in ("grad", "predict"):
+                check_alike(f"{spec} at the init", res, key)
+            check(len({r["loss"] for r in res}) == 1, f"{spec}: the ranks' "
+                  "losses differ")
+            fitc_mesh_reference_check(spec, res[0], ref)
+            for r in res:
+                check(r["launches"] == (1, 1, 1, 1, 0, 0),
+                      f"{spec} rank {r['rank']}: one loss+grad launched "
+                      f"{r['launches']} (Gram, VJP, K5 f64 then f32)")
+                pred = r["launches_predict"]
+                main = tuple(a - b for a, b in
+                             zip(r["launches_total"], pred))
+                counts.add_fitc(main, f64_l, f32_l,
+                                FITC_ROWS_BLOCK if on_n else FITC_ROWS_F32)
+                counts.add_fitc(pred, f64_l, f"request (4, 64, 512), {spec}")
+            check_alike(f"{spec} 2-step Adam fit", res, "fit_free")
+            for r in res[1:]:
+                check(np.array_equal(r["fit_z"], res[0]["fit_z"]),
+                      f"{spec}: the ranks' fitted z differ")
+            mem = max(r["peak_bytes"] - r["resident_bytes"] for r in res)
+            s = summary[str(spec)] = dict(
+                first_s=max(r["first_s"] for r in res),
+                warm_s=max(r["warm_s"] for r in res),
+                staged_mb=[r["staged_bytes"] / 1e6 for r in res],
+                loss_grad_gb=mem / 1e9, share_of_one_rank=mem / peak1,
+                aux_s=max(r["aux_s"] for r in res),
+                request_ms=1e3 * max(r["request_s"] for r in res),
+                fit_s=max(r["fit_s"] for r in res))
+            say(f"  [{card}] {spec} config 7 'fast': loss+grad first "
+                f"{s['first_s']:.3f} s, warm {s['warm_s']:.3f} s (slowest "
+                "rank); staged per loss+grad " + ", ".join(
+                    f"{b:.2f}" for b in s["staged_mb"]) + " MB; a loss+grad's "
+                f"memory {mem / 1e9:.3f} GB a rank, {s['share_of_one_rank']:.3f}"
+                f" of the one NCCL rank's {peak1 / 1e9:.3f} GB; aux "
+                f"{s['aux_s']:.3f} s, 64-point request {s['request_ms']:.1f} "
+                f"ms; 2-step Adam fit {s['fit_s']:.3f} s, every rank's "
+                "parameters and z the same bits"
+                + (f"; refine_inducing(steps=2) {max(r['refine_s'] for r in res):.3f} s"
+                   if on_n else ""))
+            if on_n:
+                check(s["share_of_one_rank"] < 0.5, "a ('n',) 4 rank's "
+                      "loss+grad memory is not under half the one rank's")
+        summary["served"] = phase_serve_mesh_shared(dev, card, group, counts)
+    return summary
+
+
+def phase_serve_mesh_shared(dev, card, group, counts):
+    """Phase 14, part 3: served mesh models on the four gloo ranks (the
+    first rank serves, the others follow): config 4's exact model at the
+    committed fit and config 6's 'fast' FITC model at its init, each on
+    ('n',) 4; the served answers against the mesh ``model.predict``
+    (exact 1e-10 of each output's largest entry, FITC's graph 1e-6), a
+    follower's refused predict, coalesced clients, a bad request refused
+    before the broadcast, and SERVE_MESH_REQUESTS timed requests."""
+    import torch
+    from lcgp_tpu_torch.parallel import tasks
+    x4, y4, xte4, _ = config4()
+    with np.load(FITTED, allow_pickle=False) as z:
+        free4 = [z[k] for k in ("lLmb", "lLmb0", "lsigma2s", "lnugGPs")]
+    x6, y6, xte6, _, _ = fitc_config(6)
+    out = {}
+    for what, x, y, ctor, free, x0, tol in (
+            ("config 4 exact", x4, y4, dict(q=20), free4, xte4[:64], 1e-10),
+            ("config 6 FITC 'fast'", x6, y6, dict(q=4, inducing=256,
+                                                  precision="fast"),
+             None, xte6[:64], 1e-6)):
+        res = group.run(tasks.serve_mesh, ("n", FITC_MESH_RANKS), x, y, ctor,
+                        free, x0, device=str(dev), batch_size=64,
+                        requests=SERVE_MESH_REQUESTS, timeout=600)
+        lead = res[0]
+        for r in res[1:]:
+            check("follow()" in r["follower_predict"] and r["followed"],
+                  f"{what}: rank {r['rank']} did not follow")
+        for name, a, b in zip(("ypred", "ypredvar", "yconfvar"),
+                              lead["served"], lead["ref"]):
+            compare_normwise(f"served ('n',) 4 {what} {name} vs the mesh "
+                             "model.predict", torch.as_tensor(a),
+                             torch.as_tensor(b), tol)
+        check(lead["dispatches"] < len(lead["clients"]),
+              f"{what}: {len(lead['clients'])} concurrent clients took "
+              f"{lead['dispatches']} dispatches")
+        check("expected (n0," in lead["bad_request"], f"{what}: a bad "
+              "request was not refused")
+        p50, p95 = p50_p95(lead["latency_ms"])
+        say(f"  [{card}] served {what} on ('n',) 4 (4 gloo ranks): 64-point "
+            f"request p50 {p50:.3f} ms, p95 {p95:.3f} ms (of "
+            f"{len(lead['latency_ms'])}); {len(lead['clients'])} concurrent "
+            f"clients in {lead['dispatches']} dispatches")
+        out[what] = dict(p50_ms=p50, p95_ms=p95)
+        launches = [r["launches"] for r in res]
+        if "exact" in what:
+            counts.add("matern32_gram", "served config 4, ('n',) 4: the "
+                       "aux's rows (20, 1024, 4096) and requests (20, 64, "
+                       "1024)", sum(la[0] for la in launches))
+        else:
+            for la in launches:
+                counts.add_fitc(la, "Kmm (4, 256, 256), served config 6",
+                                "Knm (4, 12500, 256) and requests (4, 64, "
+                                "256), served config 6")
+    return out
+
+
 def other_library(root):
     """The kernel library of another checkout at ``root`` (for example the
     parent commit, unpacked with ``git archive``), built by that checkout's
@@ -4155,12 +4735,11 @@ def k3_gram_extended_errors(libs, xs, free_np):
 
 
 # The kernels whose bits may differ from the other checkout's, as (family,
-# entry point): those redesigned against the parent, K4's VJP and K5 of
-# every family.  Each is held to its plain version instead, and its two
-# launches to the same bits; every other kernel must give the other
-# checkout's bits.
-AGAINST_REDESIGNED = {("rbf", "gram_vjp"), ("matern32", "gram_vjp_x"),
-                      ("matern52", "gram_vjp_x"), ("rbf", "gram_vjp_x")}
+# entry point): those redesigned against the parent (none now; PR 9 put
+# K4's VJP and K5 here).  Each is held to its plain version instead, and
+# its two launches to the same bits; every other kernel must give the
+# other checkout's bits.
+AGAINST_REDESIGNED = set()
 
 
 def vjp_extended_shares(libs, kind, xs, ls, amp, nug, M, alpha, w, ks):
@@ -4585,6 +5164,39 @@ def main() -> int:
     say(f"[13] done in {time.perf_counter() - t13:.1f} s"
         + (f" (the {MESH_RANKS}-rank run cut to n={MESH_CUT_N})" if cut
            else ""))
+    del x, y, xte
+    torch.cuda.empty_cache()
+
+    say("[14] n-sharded FITC (lcgp_tpu_torch/parallel/fitc_shard.py) at "
+        "config 7 (n=400,000, m=512, d=2, p=20, q=4, 'fast'): one NCCL rank "
+        f"and {FITC_MESH_RANKS} gloo ranks sharing the card; served mesh "
+        "models (config 4 exact, config 6 FITC)")
+    t14 = time.perf_counter()
+    counts14 = FitcMeshCounts()
+    ref7, x0_7, z7, peak1_7, served = phase_fitc_mesh_one_rank(dev, card,
+                                                               counts14)
+    block14 = phase_fitc_block_kernels(dev, card, fitc_config(7)[0], z7)
+    torch.cuda.empty_cache()
+    shared = phase_fitc_mesh_shared(dev, card, ref7, x0_7, z7, peak1_7,
+                                    counts14)
+    shared["served"]["config 4 exact, one NCCL rank"] = served
+    by_name = {rec["name"]: rec for rec in records + block14}
+    for rec in block14:
+        rec["launches"] = 0
+    for row, by in sorted(counts14.rows.items()):
+        rec = by_name[row]
+        rec["launches_fitc_mesh_by_shape"] = by
+        rec["launches"] += sum(by.values())
+    say("  launches of phase 14's main path by kernel row and shape: "
+        + "; ".join(f"{row} {by}" for row, by in sorted(
+            counts14.rows.items())))
+    for rec in block14:
+        check(rec["launches"] > 0, f"{rec['name']} did not launch at its "
+              "shape on phase 14's main path")
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    block14[0]["fitc_mesh"] = shared
+    records += block14
+    say(f"[14] done in {time.perf_counter() - t14:.1f} s")
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

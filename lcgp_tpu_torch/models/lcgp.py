@@ -9,16 +9,15 @@ aux accessors, npz ``save``/``load`` format and fit checkpoints as
 (``inducing=``, ``n_chunk=``, :meth:`LCGP.refine_inducing`; its npz files
 too), and the multi-device paths over ``torch.distributed``
 (``lcgp_tpu_torch/parallel``): ``fit(mesh=...)`` on a ('comp','out'),
-('n',) or ('comp','n') mesh and :meth:`LCGP.set_mesh`.  NumPy or tensors
-in, tensors on ``device`` out (float64, or float32 latents under
-``'fast'``).  What is not ported yet (FITC on an n-mesh) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+('n',) or ('comp','n') mesh and :meth:`LCGP.set_mesh`, the exact path and
+FITC (``parallel/fitc_shard.py``) alike.  NumPy or tensors in, tensors on
+``device`` out (float64, or float32 latents under ``'fast'``).
 
 On a mesh every rank runs the same program: each constructs the same model
 and makes the same calls in the same order, and every call that reaches the
-mesh (``fit(mesh=)``, and with :meth:`LCGP.set_mesh` ``loss()``, the aux
-accessors, ``predict`` and ``save``) is a collective that every rank of
-the mesh must make.
+mesh (``fit(mesh=)``, :meth:`LCGP.set_mesh`, and with a mesh ``loss()``,
+the aux accessors, ``predict``, ``refine_inducing`` and ``save``) is a
+collective that every rank of the mesh must make.
 """
 from __future__ import annotations
 
@@ -451,10 +450,7 @@ class LCGP:
         """The full-path loss at the current parameters: FITC's with
         inducing points, the exact one otherwise."""
         if self._z is not None:
-            return sparse.neglpost_full_fitc(
-                self._free, self._data, self._z,
-                compute_dtype=self._compute_dtype, kernel=self.kernel,
-                n_chunk=self.n_chunk)
+            return self._fitc_loss(self._compute_dtype)(self._free, self._z)
         if self._n_mesh is not None:
             from ..parallel import nshard
             return nshard.neglpost_full_nsharded(
@@ -470,10 +466,7 @@ class LCGP:
         """The rep-path loss at the current parameters: FITC's with
         inducing points, the exact one otherwise."""
         if self._z is not None:
-            return sparse.neglpost_rep_fitc(
-                self._free, self._data, self._z,
-                compute_dtype=self._compute_dtype, kernel=self.kernel,
-                n_chunk=self.n_chunk)
+            return self._fitc_loss(self._compute_dtype)(self._free, self._z)
         if self._n_mesh is not None:
             from ..parallel import nshard
             return nshard.neglpost_rep_nsharded(
@@ -488,11 +481,12 @@ class LCGP:
     def set_mesh(self, mesh):
         """Attach (or detach, with None) an ('n',) or ('comp','n') mesh
         (``parallel.nshard.make_n_mesh`` / ``make_nc_mesh``): ``loss()``,
-        the aux and ``predict`` then run n-sharded (``parallel/nshard.py``),
-        and each is a collective.  The mesh's device must be the model's.
-        Any other axis names raise ``ValueError``; an inducing-point model
-        raises ``NotImplementedError`` (n-sharded FITC is ROADMAP.md item
-        17c)."""
+        the aux and ``predict`` then run n-sharded (``parallel/nshard.py``,
+        or ``parallel/fitc_shard.py`` for an inducing-point model), and
+        each is a collective.  The mesh's device must be the model's; any
+        other axis names raise ``ValueError``.  An inducing-point model
+        takes the mesh's first rank's inducing points, so that every rank
+        holds the same bits: attaching a mesh to it is a collective."""
         if mesh is not None:
             from ..parallel import nshard
             if not nshard.is_n_mesh(mesh):
@@ -500,12 +494,9 @@ class LCGP:
                     "set_mesh needs an ('n',) or ('comp','n') mesh "
                     "(parallel.nshard.make_n_mesh / make_nc_mesh); got "
                     f"axis names {tuple(mesh.axis_names)!r}")
-            if self._z is not None:
-                raise NotImplementedError(
-                    'n-sharded FITC (an inducing-point model on an '
-                    "('n',) or ('comp','n') mesh) is not ported yet "
-                    '(ROADMAP.md item 17c)')
             self._check_mesh_device(mesh)
+            if self._z is not None:
+                self._z = mesh.from_first(self._z)
         self._n_mesh = mesh
         self._aux = None
         self._aux_version = -1
@@ -567,9 +558,21 @@ class LCGP:
                              q_chunk=self.q_chunk, kernel=self.kernel)
 
     def _fitc_loss(self, compute_dtype):
-        """(free, z) -> the FITC loss of the submethod."""
-        fitc = (sparse.neglpost_rep_fitc if self.submethod == 'rep'
-                else sparse.neglpost_full_fitc)
+        """(free, z) -> the FITC loss of the submethod: n-sharded on a
+        mesh (``parallel/fitc_shard.py``, where a rank holds its whole
+        block and ``n_chunk`` is not used), else one device's."""
+        rep = self.submethod == 'rep'
+        mesh = self._n_mesh
+        if mesh is not None:
+            from ..parallel import fitc_shard
+            fitc = (fitc_shard.neglpost_rep_fitc_nsharded if rep
+                    else fitc_shard.neglpost_full_fitc_nsharded)
+
+            def loss(free, z):
+                return fitc(free, self._data, z, mesh,
+                            compute_dtype=compute_dtype, kernel=self.kernel)
+            return loss
+        fitc = sparse.neglpost_rep_fitc if rep else sparse.neglpost_full_fitc
 
         def loss(free, z):
             return fitc(free, self._data, z, compute_dtype=compute_dtype,
@@ -620,7 +623,9 @@ class LCGP:
         collective that every rank of the mesh calls alike.  An ('n',) or
         ('comp','n') mesh shards the n axis (``parallel/nshard.py``) and
         attaches the mesh (:meth:`set_mesh`), with the same
-        ``method='auto'`` choice ('mixed' runs in f64 there).  On a
+        ``method='auto'`` choice ('mixed' runs in f64 there); an
+        inducing-point model runs n-sharded FITC
+        (``parallel/fitc_shard.py``).  On a
         ('comp','out') mesh (``parallel.make_mesh``) method='auto' or
         'adam' runs ``parallel.fit_sharded`` (kwargs: steps,
         learning_rate, block_steps, plateau_rtol, plateau_patience,
@@ -781,15 +786,20 @@ class LCGP:
 
     def _fit_nsharded(self, mesh, verbose=False, method='auto', **kwargs):
         """Fit with the n axis distributed over an ('n',) or ('comp','n')
-        mesh: the loss and gradient of ``parallel/nshard.py``, under the
+        mesh: the loss and gradient of ``parallel/nshard.py`` (or
+        ``parallel/fitc_shard.py`` for an inducing-point model), under the
         single-device optimizer loop (callbacks and checkpoints included).
         Attaches the mesh (:meth:`set_mesh`).  precision='mixed' runs in
         f64 here; 'fast' runs in f32."""
         from ..parallel import nshard
         self.set_mesh(mesh)
-        loss_fn = nshard.make_loss(self.submethod, self._data, mesh,
-                                   compute_dtype=self._compute_dtype,
-                                   jitter=self._jitter, kernel=self.kernel)
+        if self._z is not None:
+            loss_fn = self._loss_fn()
+        else:
+            loss_fn = nshard.make_loss(self.submethod, self._data, mesh,
+                                       compute_dtype=self._compute_dtype,
+                                       jitter=self._jitter,
+                                       kernel=self.kernel)
         if method == 'auto':
             if self.precision == 'fast':
                 method = 'lbfgs-jax'
@@ -884,7 +894,9 @@ class LCGP:
         joint=False holds the hyperparameters fixed and moves only z.
         Returns the final loss.  z stays unconstrained: the kernel is
         defined everywhere, and projecting back to [0, 1]^d would undo the
-        optimization.  On CUDA the gradient in z is K5's."""
+        optimization.  On CUDA the gradient in z is K5's.  On a mesh the
+        loss is n-sharded FITC's, K5 runs on each rank's block and z's
+        gradient is summed over the ranks (a collective)."""
         if self._z is None:
             raise ValueError('refine_inducing requires an inducing-point '
                              'model (construct with inducing=...)')
@@ -910,13 +922,21 @@ class LCGP:
     # ------------------------------------------------------------------
     def _ensure_aux(self):
         """The predictive aux (FullAux, RepAux, FitcAux or, on an n-mesh,
-        NShardAux) at the current parameters, rebuilt after any parameter
-        change.  FITC and the n-mesh under 'mixed' build it in f64: FITC's
-        (m, m) systems are f64 by design, and the distributed factor takes
-        no refinement."""
+        NShardAux, or FitcAux built n-sharded) at the current parameters,
+        rebuilt after any parameter change.  FITC and the n-mesh under
+        'mixed' build it in f64: FITC's (m, m) systems are f64 by design,
+        and the distributed factor takes no refinement."""
         if self._aux is None or self._aux_version != self._params_version:
             self._aux = None   # free the old factor before building the new
-            if self._n_mesh is not None:
+            if self._z is not None and self._n_mesh is not None:
+                from ..parallel import fitc_shard
+                self._aux = fitc_shard.compute_aux_fitc_nsharded(
+                    self._free, self._data, self._z, self.submethod,
+                    self._n_mesh,
+                    compute_dtype=(None if self.precision == 'mixed'
+                                   else self._compute_dtype),
+                    kernel=self.kernel)
+            elif self._n_mesh is not None:
                 from ..parallel import nshard
                 self._aux = nshard.compute_aux_nsharded(
                     self._free, self._data, self._n_mesh,
@@ -946,14 +966,21 @@ class LCGP:
 
     # The aux accessors of lcgp_tpu (lcgp.py:1066-1152); each returns None
     # on the submethod it does not belong to, and every dense factor's
-    # returns None on an inducing-point model.  On an n-mesh the factor and
-    # dual weights are gathered from the ranks (a collective) and trimmed of
-    # the n padding and of the 'comp' axis's q padding.
+    # returns None on an inducing-point model.  They dispatch on the aux's
+    # type, as the reference's _is_nshard_aux does: on an exact n-mesh the
+    # factor and dual weights are gathered from the ranks (a collective)
+    # and trimmed of the n padding and of the 'comp' axis's q padding; a
+    # FITC model's aux is a replicated FitcAux on a mesh too.
+    @staticmethod
+    def _is_nshard_aux(aux) -> bool:
+        from ..parallel.nshard import NShardAux
+        return isinstance(aux, NShardAux)
+
     @property
     def CinvMs(self):
         """(q, n) dual weights (FITC's ``u``)."""
         aux = self._ensure_aux()
-        if self._n_mesh is not None:
+        if self._is_nshard_aux(aux):
             from ..parallel import nshard
             u = nshard.gather_u(self._n_mesh, aux)
             return u[:int(self.q), :int(self.n)]
@@ -965,7 +992,7 @@ class LCGP:
         factor, its pad rows decoupled identity rows, and the padded
         components trail)."""
         aux = self._ensure_aux()
-        if self._n_mesh is not None:
+        if self._is_nshard_aux(aux):
             from ..parallel import nshard
             n = int(self.n)
             L = nshard.gather_factor(self._n_mesh, aux)
@@ -1011,19 +1038,20 @@ class LCGP:
     @property
     def mks(self):
         """Rep path: (q, n) latent means at the training sites (None on an
-        n-mesh, which does not form them)."""
-        if self.submethod != 'rep' or self._z is not None \
-                or self._n_mesh is not None:
+        exact n-mesh, which does not form them)."""
+        if self.submethod != 'rep' or self._z is not None:
             return None
-        return self._ensure_aux().mks
+        aux = self._ensure_aux()
+        return None if self._is_nshard_aux(aux) else aux.mks
 
     @property
     def psi_c(self):
-        """Rep path: (q, p) Phi^T Sigma_used^{-1/2} (None on an n-mesh)."""
-        if self.submethod != 'rep' or self._z is not None \
-                or self._n_mesh is not None:
+        """Rep path: (q, p) Phi^T Sigma_used^{-1/2} (None on an exact
+        n-mesh)."""
+        if self.submethod != 'rep' or self._z is not None:
             return None
-        return self._ensure_aux().psi_c
+        aux = self._ensure_aux()
+        return None if self._is_nshard_aux(aux) else aux.psi_c
 
     def predict(self, x0, return_fullcov: bool = False,
                 batch_size: Optional[int] = None):
@@ -1100,7 +1128,7 @@ class LCGP:
             _, count, worst = sparse.clamp_variance(stats_src)
             self._record_clamp_stats(count, worst, stats_src.numel())
             return ghat, torch.clamp_min(gvar, 0.0)
-        if self._n_mesh is not None:
+        if self._is_nshard_aux(aux):
             from ..parallel import nshard
             return nshard.predict_nsharded_core(
                 self._free, self._data, aux, x0s, self._n_mesh,

@@ -14,12 +14,15 @@ and runs on every rank:
 - the ('n',) mesh of every rank: the n-sharded loss and gradient, then
   ``LCGP.fit(mesh=...)`` (Adam) and ``predict`` against the single-device
   predict at the fitted parameters;
+- n-sharded FITC on that mesh (``fitc_shard.py``): an inducing-point
+  model's 4-step Adam ``fit(mesh=...)`` and ``predict`` against the
+  single-device FITC model at the fitted parameters and z;
 - with 4 or more ranks (an even count), the ('comp','n') mesh (2, n/2):
   its loss and gradient with q=3 (the component padding) and a fit and
-  predict through the API.
+  predict through the API, then the n-sharded FITC loss and gradient there
+  with q=3.
 
-Any disagreement raises; the mesh FITC mode is not ported yet (ROADMAP.md
-item 17c).
+Any disagreement raises.  The summary lists the modes run.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from ..models import basis as basis_mod
 from ..models import likelihood as lik
 from ..models import params as Pm
+from ..models import sparse
 from .group import WorkerGroup
 
 
@@ -68,11 +72,13 @@ def _check_vg(what, mesh_vg, ref_vg):
         _check(f'{what} gradient', g, r, rtol=1e-7, atol=1e-9)
 
 
-def _predict_parity(what, model, x, y, x0, device):
+def _predict_parity(what, model, x, y, x0, device, **ctor):
     from ..models.lcgp import LCGP
     got = model.predict(x0)[0]
-    single = LCGP(y=y, x=x, q=model.q, device=device)
+    single = LCGP(y=y, x=x, q=model.q, device=device, **ctor)
     single.free = model.free
+    if model._z is not None:
+        single._z = model._z.clone()
     _check(what, got, single.predict(x0)[0])
 
 
@@ -138,6 +144,14 @@ def _dryrun_body(n_devices: int, device: str) -> dict:
     _predict_parity("('n',) LCGP predict", model, x, y, x0, device)
     done = ['comp_out', 'n']
 
+    # n-sharded FITC on the same mesh: a train step and predict on an
+    # inducing-point model, the (q, n, m) panel's rows distributed
+    model_f = LCGP(y=y, x=x, q=3, inducing=8, device=device)
+    model_f.fit(mesh=nmesh, method='adam', steps=4, learning_rate=1e-2)
+    _predict_parity("('n',) FITC predict", model_f, x, y, x0, device,
+                    inducing=8)
+    done.append('fitc_n')
+
     # the ('comp','n') mesh, q=3 not divisible by 'comp' = 2
     if n_devices % 2 == 0 and n_devices >= 4:
         ncmesh = nshard.make_nc_mesh(2, n_devices // 2, device=device)
@@ -152,7 +166,16 @@ def _dryrun_body(n_devices: int, device: str) -> dict:
         _predict_parity("('comp','n') LCGP predict", model_c, x, y, x0,
                         device)
         done.append('comp_n')
-    return dict(modes=done, fitc='not ported yet (ROADMAP.md item 17c)')
+        # FITC on the 2-D mesh: the loss and its gradient, q=3
+        from . import fitc_shard
+        z_c = torch.as_tensor(np.random.default_rng(6).uniform(0, 1, (8, 2)),
+                              dtype=torch.float64, device=device)
+        _check_vg("('comp','n') FITC", _value_and_grad(
+            fitc_shard.make_loss('full', data_c, z_c, ncmesh), free_c),
+            _value_and_grad(lambda f: sparse.neglpost_full_fitc(
+                f, data_c, z_c), free_c))
+        done.append('fitc_comp_n')
+    return dict(modes=done)
 
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:

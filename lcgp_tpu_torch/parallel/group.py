@@ -256,6 +256,13 @@ class Mesh:
         self.staged_bytes += h.nbytes
         return t.clone() if mine else h.to(self.device)
 
+    def from_first(self, t):
+        """The mesh's first rank's t on every rank of the mesh: broadcast
+        along each axis in turn from its index 0, the outer axis first."""
+        for axis in self.axis_names:
+            t = self.broadcast(t, axis, 0)
+        return t
+
     def enter(self, *tensors):
         """The tensors, replicated on every rank, entering code whose
         collectives are differentiable: the backward all-reduces their

@@ -5,16 +5,22 @@ NumPy, so a caller in another process (a test, :mod:`.dryrun`,
 
 A mesh is named by a spec: ``('n', n_n)``, ``('nc', n_comp, n_n)`` or
 ``('co', n_comp, n_out)``.  Data and parameters arrive as NumPy: a dict with
-the fields of ``FullData`` (``ys``) or ``RepData`` (``ybar``), and the four
-free-parameter arrays.  A rank outside the mesh returns None.
+the fields of ``FullData`` (``ys``) or ``RepData`` (``ybar``), the four
+free-parameter arrays and, for FITC, the standardized inducing points z.  A
+rank outside the mesh returns None.
 """
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
 
 from ..models import likelihood as lik
 from ..models import params as Pm
+from ..models import sparse
+from . import fitc_shard
 from . import mesh as mesh_mod
 from . import nshard
 
@@ -33,6 +39,13 @@ def make(spec, device='cpu'):
 
 def host(t):
     return None if t is None else t.detach().cpu().numpy()
+
+
+def _release(mesh):
+    """On a card, return the blocks this rank's allocator caches: ranks
+    that share a card would otherwise each keep their last run's peak."""
+    if mesh.device.type == 'cuda':
+        torch.cuda.empty_cache()
 
 
 def _t(a, device):
@@ -156,6 +169,41 @@ def aux_and_predict(spec, data, free, x0s, *, device='cpu',
                 ghat=host(ghat), gvar=host(gvar))
 
 
+def fitc_loss_and_grad(spec, data, free, z, *, device='cpu',
+                       compute_dtype=None, with_z=False):
+    """(loss, [grad of each free leaf, and of z with ``with_z``]) of the
+    n-sharded FITC loss at the inducing points z."""
+    mesh = make(spec, device)
+    if not mesh.member:
+        return None
+    _release(mesh)
+    d = data_of(data, device)
+    sub = 'rep' if isinstance(d, lik.RepData) else 'full'
+    leaves = Pm.FreeParams(*(t.requires_grad_(True)
+                             for t in free_of(free, device)))
+    zt = _t(z, device).to(torch.float64).requires_grad_(with_z)
+    v = fitc_shard.make_loss(sub, d, zt, mesh,
+                             compute_dtype=compute_dtype_of(compute_dtype))(
+                                 leaves)
+    grads = torch.autograd.grad(v, [*leaves, zt] if with_z else leaves)
+    return float(v.detach()), [host(g) for g in grads]
+
+
+def fitc_aux_and_predict(spec, data, free, z, x0s, *, device='cpu'):
+    """The n-sharded FITC aux's fields and ``sparse.predict_fitc_core``'s
+    latent prediction from it at standardized x0s, f64."""
+    mesh = make(spec, device)
+    if not mesh.member:
+        return None
+    d, fr = data_of(data, device), free_of(free, device)
+    zt = _t(z, device).to(torch.float64)
+    mode = 'rep' if isinstance(d, lik.RepData) else 'full'
+    aux = fitc_shard.compute_aux_fitc_nsharded(fr, d, zt, mode, mesh)
+    ghat, gvar = sparse.predict_fitc_core(fr, d, aux, zt, _t(x0s, device))
+    return dict(**{k: host(v) for k, v in aux._asdict().items()},
+                ghat=host(ghat), gvar=host(gvar))
+
+
 def saved_bytes(spec, data, free, *, device='cpu'):
     """Bytes autograd saves for the backward during one forward of the
     n-sharded full loss, with the custom backward and without it, and the
@@ -221,26 +269,33 @@ STEPS = {
     'set_free': _step_set_free,
     'init': lambda m, mesh, kw: m.init_params(),
     'save': lambda m, mesh, path: m.save(path),
+    'z': lambda m, mesh, kw: host(m._z),
+    'refine': lambda m, mesh, kw: m.refine_inducing(**kw),
+    'aux': lambda m, mesh, kw: {k: host(v) for k, v in
+                                m._ensure_aux()._asdict().items()},
 }
 
 
-def model(spec, x, y, ctor: dict, steps, *, device='cpu'):
-    """Construct ``LCGP(y=y, x=x, device=device, **ctor)`` on every rank and
-    run ``steps``, a list of (name, argument) of :data:`STEPS`; returns
-    the list of their results.  ``('fit', kw)`` fits on the mesh unless
-    ``kw['on_mesh']`` is False, recording callbacks with
-    ``kw['record']``."""
+def model(spec, x, y, ctor: dict, steps, *, device='cpu', load=None):
+    """Construct ``LCGP(y=y, x=x, device=device, **ctor)`` (or, with
+    ``load``, ``LCGP.load(load)``) on every rank and run ``steps``, a list
+    of (name, argument) of :data:`STEPS`; returns the list of their
+    results.  ``('fit', kw)`` fits on the mesh unless ``kw['on_mesh']`` is
+    False, recording callbacks with ``kw['record']``."""
     from ..models.lcgp import LCGP
     mesh = make(spec, device)
     if not mesh.member:
         return None
-    m = LCGP(y=y, x=x, device=device, **ctor)
+    m = (LCGP.load(load, device=device) if load is not None
+         else LCGP(y=y, x=x, device=device, **ctor))
     return [STEPS[name](m, mesh, arg) for name, arg in steps]
 
 
 def refusals(spec, x, y, *, device='cpu'):
-    """What the misuses raise: FITC on an n-mesh (set_mesh and fit), FITC
-    on a ('comp','out') mesh, and a mesh of other axis names."""
+    """What five calls raise, as (type name, message), None where one
+    succeeds: FITC on an n-mesh (set_mesh and fit; ported, so None), FITC
+    on a ('comp','out') mesh, and a mesh of other axis names (fit and
+    set_mesh)."""
     from ..models.lcgp import LCGP
     mesh = make(spec, device)
     nmesh = nshard.make_n_mesh(mesh.size_total, device=device)
@@ -263,7 +318,7 @@ def refusals(spec, x, y, *, device='cpu'):
         try:
             call()
             out.append(None)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             out.append((type(e).__name__, str(e)))
     return out
 
@@ -352,4 +407,191 @@ def measure(spec, x, y, ctor, free, x0, *, device, fit=None,
         out['fit_free'] = [host(t) for t in m.free]
         out['fit_nfev'] = int(m._fit_result.nfev)
     out['launches_total'] = tuple(b - a for a, b in zip(start, counts()))
+    return out
+
+
+def _fitc_launches(kind):
+    """(Gram, VJP, K5) launches of the kind, f64 then f32: six counts."""
+    from ..ops.launch import family
+    fam = family(kind)
+    return tuple(c for fn in (fam.gram, fam.vjp, fam.vjp_x)
+                 for c in (fn.launches - fn.launches_f32, fn.launches_f32))
+
+
+def _since(start, kind):
+    return tuple(b - a for a, b in zip(start, _fitc_launches(kind)))
+
+
+def measure_fitc(spec, x, y, ctor, x0, *, device, fit=None, refine=None):
+    """One rank's share of a timed n-sharded FITC run (``chip_smoke.py`` on
+    a card): the model on the mesh, one loss+grad in the free parameters
+    as the fit drivers see it (first and warm, host seconds; the bytes
+    staged through the host; the peak memory and what was resident before
+    it; the launches), the aux and ``predict(x0)``, then
+    ``refine_inducing(**refine)`` and ``fit(mesh=..., **fit)`` when given
+    (their launches, the fitted parameters and z).  Launches are
+    ``_fitc_launches`` deltas: (Gram, VJP, K5) f64 then f32;
+    ``launches_total`` counts all of the run's."""
+    from ..fit._flat import Flattener
+    from ..fit.scipy_lbfgs import value_and_grad
+    from ..models.lcgp import LCGP
+    mesh = make(spec, device)
+    if not mesh.member:
+        return None
+    cuda = mesh.device.type == 'cuda'
+
+    def sync_s(t0):
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    m = LCGP(y=y, x=x, device=device, **ctor)
+    m.set_mesh(mesh)
+    kind = m.kernel
+    flat = Flattener(m.free)
+    vg = value_and_grad(m._loss_fn(), flat)
+    z0 = flat.ravel(m.free).cpu().numpy()
+    out = dict(rank=torch.distributed.get_rank(), z=host(m._z))
+    start = _fitc_launches(kind)
+    _release(mesh)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out['resident_bytes'] = torch.cuda.memory_allocated()
+    c0, s0, t0 = _fitc_launches(kind), mesh.staged_bytes, time.perf_counter()
+    out['loss'], out['grad'] = vg(z0)
+    out['first_s'] = sync_s(t0)
+    out['launches'] = _since(c0, kind)
+    out['staged_bytes'] = mesh.staged_bytes - s0
+    if cuda:
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    vg(z0)
+    out['warm_s'] = sync_s(t0)
+    c0, t0 = _fitc_launches(kind), time.perf_counter()
+    m.compute_aux_predictive_quantities()
+    out['aux_s'] = sync_s(t0)
+    out['launches_aux'] = _since(c0, kind)
+    c0, t0 = _fitc_launches(kind), time.perf_counter()
+    out['predict'] = [host(t) for t in m.predict(x0)]
+    out['request_s'] = sync_s(t0)
+    out['launches_predict'] = _since(c0, kind)
+    if refine is not None:
+        c0, t0 = _fitc_launches(kind), time.perf_counter()
+        out['refine_loss'] = m.refine_inducing(**refine)
+        out['refine_s'] = sync_s(t0)
+        out['launches_refine'] = _since(c0, kind)
+    if fit is not None:
+        c0, t0 = _fitc_launches(kind), time.perf_counter()
+        m.fit(mesh=mesh, **fit)
+        out['fit_s'] = sync_s(t0)
+        out['launches_fit'] = _since(c0, kind)
+        out['fit_free'] = [host(t) for t in m.free]
+        out['fit_z'] = host(m._z)
+    out['launches_total'] = _since(start, kind)
+    return out
+
+
+# serve_mesh's concurrent one-row clients, and the seconds each of their
+# dispatches is held so that the others queue behind it
+SERVE_CLIENTS, SERVE_DELAY_S = 4, 0.05
+
+
+def serve_mesh(spec, x, y, ctor, free, x0, *, device='cpu', batch_size=16,
+               reload_free=None, reload_path=None, fullcov=False,
+               requests=0):
+    """A mesh model served by every rank (``serve.PredictServer``): each
+    constructs the model at ``free`` and attaches the mesh, takes the mesh
+    ``predict(x0)`` before the server starts (a collective), and constructs
+    the server.  The first rank then predicts x0, times ``requests``
+    sequential requests of x0 (host ms), sends SERVE_CLIENTS concurrent
+    requests through a dispatch slowed by SERVE_DELAY_S (counting the
+    dispatches), sends a request of the wrong width, and with ``fullcov``
+    a fullcov request; reloads a model at ``reload_free`` (every rank's
+    own) and the npz at ``reload_path``, predicting after each; and shuts
+    the server down.  The other ranks call ``predict`` (which must raise)
+    and ``follow``.  After the server stops every rank takes the mesh
+    predictions of the reloaded models.  ``launches`` counts the kind's
+    launches of all of it (``_fitc_launches``)."""
+    from ..models.lcgp import LCGP
+    from ..serve import PredictServer
+    mesh = make(spec, device)
+    if not mesh.member:
+        return None
+    _release(mesh)
+
+    def on_mesh(m, fr):
+        if fr is not None:
+            m.free = Pm.FreeParams(*fr)
+        m.set_mesh(mesh)
+        return m
+
+    m = LCGP(y=y, x=x, device=device, **ctor)
+    start = _fitc_launches(m.kernel)
+    m = on_mesh(m, free)
+    out = dict(rank=torch.distributed.get_rank(), z=host(m._z),
+               ref=[host(t) for t in m.predict(x0)])
+    if fullcov:
+        out['ref_fullcov'] = [host(t) for t in
+                              m.predict(x0[:3], return_fullcov=True)]
+    m2 = (None if reload_free is None else
+          on_mesh(LCGP(y=y, x=x, device=device, **ctor), reload_free))
+    srv = PredictServer(m, batch_size=batch_size, device=device)
+    if not mesh.is_first:
+        try:
+            srv.predict(x0)
+        except RuntimeError as e:
+            out['follower_predict'] = str(e)
+        srv.follow(reload=lambda: m2)
+        out['followed'] = True
+    else:
+        out['served'] = list(srv.predict(x0))
+        lat = []
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            srv.predict(x0)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out['latency_ms'] = lat
+        calls, real = [], srv._live
+
+        def counting(batch):
+            calls.append(batch.shape[0])
+            time.sleep(SERVE_DELAY_S)     # widen the coalescing window
+            return real(batch)
+        srv._live = counting
+        answers = [None] * SERVE_CLIENTS
+
+        def client(i):
+            answers[i] = srv.predict(x0[i:i + 1])
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError('a client was not answered within 120 s')
+        srv._live = real
+        out['clients'] = [list(a) for a in answers]
+        out['dispatches'] = len(calls)
+        try:
+            srv.predict(np.zeros((3, x0.shape[1] + 1)))
+        except ValueError as e:
+            out['bad_request'] = str(e)
+        if fullcov:
+            out['fullcov'] = list(srv.predict_fullcov(x0[:3]))
+        if m2 is not None:
+            out['reload_reused'] = srv.reload(m2)['reused_executable']
+            out['served_reload'] = list(srv.predict(x0))
+        if reload_path is not None:
+            srv.reload(reload_path)
+            out['served_load'] = list(srv.predict(x0))
+        out['info'] = srv.info()
+        srv.shutdown()
+    if m2 is not None:
+        out['ref_reload'] = [host(t) for t in m2.predict(x0)]
+    if reload_path is not None:
+        m3 = on_mesh(LCGP.load(reload_path, device=device), None)
+        out['ref_load'] = [host(t) for t in m3.predict(x0)]
+    out['launches'] = _since(start, m.kernel)
     return out

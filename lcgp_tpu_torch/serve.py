@@ -15,6 +15,20 @@ Concurrency: a single dispatcher thread owns the predict graph and
 fixed-shape dispatch and the results fanned back out, so k concurrent small
 requests cost about one device call instead of k serialized ones.
 
+A mesh model (``LCGP.set_mesh`` or ``fit(mesh=...)``, ``parallel``) is
+served by every rank of its mesh: each constructs ``PredictServer`` with its
+own model (the aux is a collective), the mesh's first rank serves as above,
+and every other rank calls :meth:`PredictServer.follow`, which runs the
+commands the first rank's dispatcher broadcasts (a header, then the padded
+batch or a path) until the first rank's ``shutdown()``.  An exact mesh
+model's step is a collective (``parallel.nshard.predict_nsharded_core``):
+it runs eagerly, with no graph, and every dispatch is broadcast.  A FITC
+mesh model predicts from its replicated aux with no collective, keeps the
+graph, and broadcasts nothing per request.  A reload, which builds the new
+aux, is a collective on either: it runs on the dispatcher thread between
+two dispatches, on every rank.  While a mesh server runs, its mesh belongs
+to it: the ranks make no other call on the mesh until ``shutdown()``.
+
 API:
   GET  /healthz            -> {"status": "ok"}
   GET  /info               -> model/config summary
@@ -28,7 +42,8 @@ API:
           pattern) the captured graph is reused: the new state is copied
           into the tensors it reads, with no new capture.  Replies with
           {"reused_executable": ..., "warmup_secs": ..., ...info}.
-          Disabled (403) unless the server was given ``reload_dir``.
+          Disabled (403) unless the server was given ``reload_dir``.  On a
+          mesh every rank loads the path and attaches the served mesh.
 
 Usage:
   python -m lcgp_tpu_torch.serve model.npz --port 8080 --batch-size 256
@@ -43,6 +58,7 @@ import os
 import queue as queue_mod
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -65,28 +81,39 @@ class _Chunk:
 
 
 class _Swap:
-    """A reload's swap of the served model, run by the dispatcher thread
-    between two dispatches."""
-    __slots__ = ('apply', 'event', 'error')
+    """Work run by the dispatcher thread between two dispatches: a
+    reload's swap of the served model, or on a mesh any command."""
+    __slots__ = ('apply', 'event', 'error', 'result')
 
     def __init__(self, apply):
         self.apply = apply
         self.event = threading.Event()
         self.error = None
+        self.result = None
 
 
 def _is_path(obj) -> bool:
     return isinstance(obj, (str, bytes)) or hasattr(obj, '__fspath__')
 
 
+# The mesh protocol: the commands the first rank's dispatcher broadcasts to
+# the followers, each a header (command, payload length) and its payload
+_NOOP, _STEP, _FULLCOV, _LOAD, _MODEL, _STOP = range(6)
+# an idle dispatcher sends _NOOP this often, so that no follower's wait
+# reaches the process group's collective timeout
+_HEARTBEAT_S = 5.0
+
+
 def _map(fn, tree):
     """``fn`` applied to every tensor of a tree of dicts and NamedTuples,
-    keeping the tree's structure."""
+    keeping the tree's structure; other leaves (a string) are kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
-    return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    return tree
 
 
 def _leaves(tree) -> list:
@@ -95,7 +122,9 @@ def _leaves(tree) -> list:
         return [tree]
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    return [t for v in tree for t in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return []
 
 
 def _structure(tree):
@@ -104,7 +133,9 @@ def _structure(tree):
         return None
     if isinstance(tree, dict):
         return tuple((k, _structure(tree[k])) for k in sorted(tree))
-    return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    if isinstance(tree, tuple):
+        return (type(tree).__name__, tuple(_structure(v) for v in tree))
+    return tree
 
 
 class _Fused:
@@ -117,15 +148,17 @@ class _Fused:
     buffer and ``state``; a call ``fn(x0)`` copies the padded batch in,
     replays the graph and copies the outputs to the host before it returns,
     so the next replay may overwrite them.  A capture that fails raises: there is no
-    eager fallback on CUDA.  On the CPU the step runs eagerly.  ``calls``
-    counts the calls, one per dispatch."""
+    eager fallback on CUDA.  On the CPU, and for a step with collectives
+    (``graph=False``: a graph cannot hold them), the step runs eagerly.
+    ``calls`` counts the calls, one per dispatch."""
 
-    def __init__(self, step, state, batch_size: int, d: int, what: str):
+    def __init__(self, step, state, batch_size: int, d: int, what: str,
+                 graph: bool = True):
         self.step, self.state = step, state
         self.device = state['x_min'].device
         self.calls = 0
         self.graph = None
-        if self.device.type == 'cuda':
+        if self.device.type == 'cuda' and graph:
             self._capture(batch_size, d, what)
 
     def _capture(self, batch_size: int, d: int, what: str):
@@ -181,7 +214,7 @@ class _Fused:
     def load_state(self, new):
         """Copy ``new`` (the bound state's structure, shapes and dtypes)
         into the bound state tensors, and wait for the copies."""
-        if self.device.type != 'cuda':
+        if self.graph is None:
             for dst, src in zip(_leaves(self.state), _leaves(new)):
                 dst.copy_(src)
             return
@@ -204,12 +237,19 @@ class PredictServer:
         a model object is served on its own device.  The server predicts
         from its own copy of the model's state, so a later ``fit`` on the
         model object changes nothing served until :meth:`reload`.  On
-        CUDA the predict graph is captured here."""
+        CUDA the predict graph is captured here.
+
+        A mesh model is served by every rank of its mesh, each passing its
+        own model (a collective: the aux is built here); the mesh's first
+        rank serves, and warms up there, the others call :meth:`follow`."""
         from .models.lcgp import LCGP
         if _is_path(model_or_path):
             self.model = LCGP.load(model_or_path, device=device)
         else:
             self.model = model_or_path
+        self.device = self.model.device
+        self._mesh = self.model._n_mesh
+        self._leader = self._mesh is None or self._mesh.is_first
         self.reload_dir = (None if reload_dir is None
                            else os.path.realpath(os.fspath(reload_dir)))
         self.batch_size = int(batch_size)
@@ -230,18 +270,20 @@ class PredictServer:
         self._enqueue_lock = threading.Lock()
         self._closed = False
         self._queue: queue_mod.Queue = queue_mod.Queue()
-        self._dispatcher = threading.Thread(target=self._dispatch_loop,
-                                            daemon=True)
-        self._dispatcher.start()
-        if warmup:
-            self.warmup()
+        self._dispatcher = None
+        if self._leader:
+            self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                                daemon=True)
+            self._dispatcher.start()
+            if warmup:
+                self.warmup()
 
     @staticmethod
     def _static_sig(model):
         """Trace-relevant model config: two models with equal signatures
         share one fused function (and, with equal state shapes, one
         captured graph).  ``_n_mesh`` is the model's n-mesh (None off a
-        mesh); a server refuses a mesh model (:meth:`_latent_core`)."""
+        mesh): mesh models share a step only on the same mesh."""
         return (model.submethod, model.kernel, str(model._compute_dtype),
                 float(model._jitter), model.q_chunk, model._z is not None,
                 model._n_mesh, bool(model.rep_standardize_ybar))
@@ -277,10 +319,17 @@ class PredictServer:
             st['mean'], st['std'] = model.ymean, model.ystd
         return _map(torch.Tensor.detach, st)
 
+    @staticmethod
+    def _step_collective(model) -> bool:
+        """Whether the model's predict step runs collectives: an exact
+        model on a mesh (a FITC mesh model's aux is replicated)."""
+        return model._n_mesh is not None and model._z is None
+
     def _latent_core(self, model):
         """The pure latent-predict core for the model's static config:
         state-parametric counterpart of ``LCGP._latent_predict``.  FITC's
-        variances are clamped at 0 without the model's clamp statistics."""
+        variances are clamped at 0 without the model's clamp statistics.
+        An exact mesh model's core is a collective."""
         from .models import predict as pred
 
         cdtype, jitter = model._compute_dtype, model._jitter
@@ -295,10 +344,14 @@ class PredictServer:
                 return ghat, torch.clamp_min(gvar, 0.0)
             return core
         if model._n_mesh is not None:
-            # on a mesh every rank must follow rank 0's dispatches
-            raise NotImplementedError(
-                'serving an n-sharded (mesh) model is not ported yet '
-                '(ROADMAP.md item 17d, serving a mesh model)')
+            from .parallel import nshard
+            mesh = model._n_mesh
+
+            def core(st, x0s):
+                return nshard.predict_nsharded_core(
+                    st['free'], st['data'], st['aux'], x0s, mesh,
+                    compute_dtype=cdtype, jitter=jitter, kernel=kernel)
+            return core
         fn = (pred.predict_rep_core if model.submethod == 'rep'
               else pred.predict_full_core)
 
@@ -333,7 +386,8 @@ class PredictServer:
                        state['mean'], state['std'])
 
         return _Fused(fused, state, self.batch_size, int(model.d),
-                      f'the predict step {self._static_sig(model)}')
+                      f'the predict step {self._static_sig(model)}',
+                      graph=not self._step_collective(model))
 
     def reload(self, model_or_path):
         """Hot-swap the served model with zero downtime.
@@ -351,29 +405,37 @@ class PredictServer:
         the new model's state is copied straight into the tensors it reads.
         Otherwise a new graph is captured over a clone of the new state.  Returns a dict:
         ``{'reused_executable': bool, 'warmup_secs': float, ...info}``.
+
+        On a mesh server the reload is a collective, run on the dispatcher
+        thread (requests wait for it): a path is broadcast and every rank
+        loads it and attaches the served mesh; a model is this rank's, and
+        each follower takes its own from the ``reload`` callable it gave
+        :meth:`follow`.  A new model must be on the served mesh.
         """
         from .models.lcgp import LCGP
 
+        self._lead('reload')
+        path = None
         if _is_path(model_or_path):
-            new_model = LCGP.load(model_or_path, device=self.model.device)
+            path = os.fspath(model_or_path)
+            path = path.decode() if isinstance(path, bytes) else path
+            new_model = LCGP.load(path, device=self.device)
         else:
             new_model = model_or_path
         if int(new_model.d) != int(self.model.d):
             raise ValueError(
                 f'reload d mismatch: serving d={int(self.model.d)}, new '
                 f'model d={int(new_model.d)} — clients post (n0, d) inputs')
+        if self._mesh is not None:
+            return self._reload_mesh(new_model, path)
+        self._check_mesh_of(new_model)
 
         with self._reload_lock:
             new_sig = self._static_sig(new_model)
             # the new model's own tensors: a same-shape swap copies them
             # into the graph's state, so only a new capture needs a clone
             new_state = self._model_state(new_model)
-            same_shape = (new_sig == self._sig and
-                          _structure(new_state) == _structure(self._state)
-                          and all(a.shape == b.shape and a.dtype == b.dtype
-                                  and a.device == b.device
-                                  for a, b in zip(_leaves(new_state),
-                                                  _leaves(self._state))))
+            same_shape = self._same_shape(new_sig, new_state)
             # Warm (capture if needed) off the serving path: the dispatcher
             # keeps answering from the old state until the swap below.
             x0 = np.full((self.batch_size, int(new_model.d)), 0.5)
@@ -389,33 +451,92 @@ class PredictServer:
                 fn = self._build_fused(new_model, new_state)
                 fn(x0)
             warm = time.time() - t0
-
-            def swap():
-                if same_shape:
-                    with self._state_lock:
-                        fn.load_state(new_state)
-                else:
-                    self._fn_fullcov = None  # rebuilt on next fullcov request
-                self.model, self._state, self._fn, self._sig = \
-                    new_model, fn.state, fn, new_sig
-                self._live = fn
-                self._reload_count += 1
-            self._run_on_dispatcher(swap)
+            self._run_on_dispatcher(lambda: self._swap_in(
+                new_model, new_sig, fn, new_state if same_shape else None))
         return dict(reused_executable=bool(same_shape),
                     warmup_secs=round(warm, 3), **self.info())
 
-    def _run_on_dispatcher(self, apply):
+    def _check_mesh_of(self, new_model):
+        if new_model._n_mesh is not self._mesh:
+            raise ValueError(
+                'reload: the new model must be on the served mesh '
+                f'({self._mesh}), not on {new_model._n_mesh}')
+
+    def _same_shape(self, new_sig, new_state) -> bool:
+        """Whether a model of signature ``new_sig`` and state ``new_state``
+        can reuse the served step: its state copied into the step's."""
+        return (new_sig == self._sig and
+                _structure(new_state) == _structure(self._state)
+                and all(a.shape == b.shape and a.dtype == b.dtype
+                        and a.device == b.device
+                        for a, b in zip(_leaves(new_state),
+                                        _leaves(self._state))))
+
+    def _swap_in(self, new_model, new_sig, fn, new_state=None):
+        """Serve ``new_model`` through ``fn``, its state first copied into
+        the served step's when ``new_state`` is given (a same-shape swap).
+        Runs between two dispatches."""
+        if new_state is not None:
+            with self._state_lock:
+                fn.load_state(new_state)
+        else:
+            self._fn_fullcov = None  # rebuilt on next fullcov request
+        self.model, self._state, self._fn, self._sig = \
+            new_model, fn.state, fn, new_sig
+        self._live = fn
+        self._reload_count += 1
+
+    def _install(self, new_model) -> bool:
+        """A mesh server's swap, run alike by every rank at one command:
+        the new state (its aux, a collective), the served step reused on a
+        same-shape state or built anew, the swap.  Returns whether the
+        step was reused."""
+        new_sig = self._static_sig(new_model)
+        new_state = self._model_state(new_model)
+        same_shape = self._same_shape(new_sig, new_state)
+        if same_shape:
+            fn = self._fn
+        else:
+            new_state = self._extract_state(new_model)
+            fn = self._build_fused(new_model, new_state)
+        self._swap_in(new_model, new_sig, fn,
+                      new_state if same_shape else None)
+        return same_shape
+
+    def _reload_mesh(self, new_model, path):
+        """The first rank's half of a mesh reload (see :meth:`reload`)."""
+        if path is None:
+            self._check_mesh_of(new_model)
+        with self._reload_lock:
+            t0 = time.time()
+
+            def apply():
+                if path is None:
+                    self._command(_MODEL)
+                else:
+                    self._command(_LOAD, path.encode())
+                    new_model.set_mesh(self._mesh)
+                return self._install(new_model)
+            same_shape = self._run_on_dispatcher(apply, inline=False)
+            warm = time.time() - t0
+        return dict(reused_executable=bool(same_shape),
+                    warmup_secs=round(warm, 3), **self.info())
+
+    def _run_on_dispatcher(self, apply, inline: bool = True):
         """Run ``apply`` on the dispatcher thread between two dispatches
-        (inline once the server is shut down); re-raise its error."""
+        and return its result (inline once the server is shut down, unless
+        ``inline`` is False: then it raises); re-raise its error."""
         swap = _Swap(apply)
         with self._enqueue_lock:
             if self._closed:
-                apply()
-                return
+                if not inline:
+                    raise RuntimeError('the server is shut down')
+                return apply()
             self._queue.put(swap)
         swap.event.wait()
         if swap.error is not None:
             raise swap.error
+        return swap.result
 
     def warmup(self):
         """Run one full fixed-batch dispatch before the first request."""
@@ -425,6 +546,21 @@ class PredictServer:
         self.predict(x0)
         return time.time() - t0
 
+    def _lead(self, what: str):
+        if not self._leader:
+            raise RuntimeError(
+                f'PredictServer.{what}: this rank follows the first rank of '
+                f'the mesh; call follow() here and {what} on the first rank')
+
+    def _checked(self, x0):
+        """A request as a float64 (n0, d) array, validated before anything
+        is dispatched or broadcast."""
+        x0 = np.atleast_2d(np.asarray(x0, dtype=np.float64))
+        if x0.ndim != 2 or x0.shape[1] != int(self.model.d):
+            raise ValueError(
+                f'expected (n0, {int(self.model.d)}) inputs, got {x0.shape}')
+        return x0
+
     def predict(self, x0):
         """Thread-safe predict through the microbatching dispatcher.
 
@@ -433,10 +569,8 @@ class PredictServer:
         into one padded fixed-shape dispatch, and the rows are fanned back
         out.  Values are identical to ``model.predict``, as NumPy arrays.
         """
-        x0 = np.atleast_2d(np.asarray(x0, dtype=np.float64))
-        if x0.shape[1] != int(self.model.d):
-            raise ValueError(
-                f'expected (n0, {int(self.model.d)}) inputs, got {x0.shape}')
+        self._lead('predict')
+        x0 = self._checked(x0)
         bs = self.batch_size
         chunks = [_Chunk(x0[s:s + bs]) for s in range(0, x0.shape[0], bs)]
         with self._enqueue_lock:
@@ -459,41 +593,55 @@ class PredictServer:
         O(n0 p^2): requests run serialized through their own fused step
         (a second graph on CUDA, captured on first use over the same state
         tensors) rather than the row-microbatcher.  A request reads one
-        model's state throughout.
+        model's state throughout.  An exact mesh model's fullcov step is a
+        collective: it runs on the dispatcher thread, each chunk broadcast.
         """
-        x0 = np.atleast_2d(np.asarray(x0, dtype=np.float64))
-        if x0.shape[1] != int(self.model.d):
-            raise ValueError(
-                f'expected (n0, {int(self.model.d)}) inputs, got {x0.shape}')
+        self._lead('predict_fullcov')
+        x0 = self._checked(x0)
         with self._fullcov_lock:
-            with self._reload_lock:     # pair fn_fullcov with the model;
-                # re-validate submethod here: a concurrent full->rep reload
-                # after an unlocked check would otherwise hand a rep model
-                # to the fullcov build
-                model = self.model
-                if model.submethod != 'full':
-                    raise ValueError(
-                        'full predictive covariance is only available '
-                        "for submethod='full' models")
-                if self._fn_fullcov is None:
-                    self._fn_fullcov = self._build_fused_fullcov(
-                        model, self._state)
-                fn = self._fn_fullcov
-            bs = self.batch_size
-            outs = []
-            with self._state_lock:
-                for s in range(0, x0.shape[0], bs):
-                    blk = x0[s:s + bs]
-                    k = blk.shape[0]
-                    if k < bs:
-                        blk = np.concatenate(
-                            [blk, np.repeat(blk[-1:], bs - k, axis=0)])
-                    res = fn(blk)
-                    outs.append((res[0][:, :k], res[1][:, :k],
-                                 res[2][:, :k], res[3][:k]))
+            if self._step_collective(self.model):
+                outs = self._run_on_dispatcher(
+                    lambda: self._fullcov_chunks(x0, self._fullcov_fn(),
+                                                 announce=True),
+                    inline=False)
+            else:
+                with self._reload_lock:     # pair fn_fullcov with the model
+                    fn = self._fullcov_fn()
+                with self._state_lock:
+                    outs = self._fullcov_chunks(x0, fn)
         return tuple(np.concatenate([o[i] for o in outs],
                                     axis=1 if i < 3 else 0)
                      for i in range(4))
+
+    def _fullcov_fn(self):
+        """The served model's fullcov step, built on first use.  Raises
+        for a rep model: a concurrent full->rep reload after an unlocked
+        check would otherwise hand a rep model to the fullcov build."""
+        if self.model.submethod != 'full':
+            raise ValueError('full predictive covariance is only available '
+                             "for submethod='full' models")
+        if self._fn_fullcov is None:
+            self._fn_fullcov = self._build_fused_fullcov(self.model,
+                                                         self._state)
+        return self._fn_fullcov
+
+    def _fullcov_chunks(self, x0, fn, announce: bool = False):
+        """The fullcov step ``fn`` over x0's padded chunks; with
+        ``announce`` each chunk is broadcast to the followers first."""
+        bs = self.batch_size
+        outs = []
+        for s in range(0, x0.shape[0], bs):
+            blk = x0[s:s + bs]
+            k = blk.shape[0]
+            if k < bs:
+                blk = np.concatenate([blk, np.repeat(blk[-1:], bs - k,
+                                                     axis=0)])
+            if announce:
+                self._command(_FULLCOV, blk)
+            res = fn(blk)
+            outs.append((res[0][:, :k], res[1][:, :k], res[2][:, :k],
+                         res[3][:k]))
+        return outs
 
     def _build_fused_fullcov(self, model, state):
         from .models import predict as pred
@@ -511,7 +659,83 @@ class PredictServer:
             return yp, ypv, ycv, cov
 
         return _Fused(fused, state, self.batch_size, int(model.d),
-                      f'the fullcov step {self._static_sig(model)}')
+                      f'the fullcov step {self._static_sig(model)}',
+                      graph=not self._step_collective(model))
+
+    # -- the mesh protocol ---------------------------------------------
+    def _command(self, op: int, payload=None):
+        """First rank, on a mesh: broadcast one command to the followers,
+        its header (op, payload length) and its payload (a padded batch or
+        a path's bytes).  Off a mesh, nothing."""
+        mesh = self._mesh
+        if mesh is None:
+            return
+        if isinstance(payload, bytes):
+            payload = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        elif payload is not None:
+            payload = torch.as_tensor(payload, dtype=_F64)
+        size = 0 if payload is None else payload.numel()
+        mesh.from_first(torch.tensor([op, size], dtype=torch.int64,
+                                     device=mesh.device))
+        if payload is not None:
+            mesh.from_first(payload.to(mesh.device))
+
+    def _receive(self):
+        """A follower's half of :meth:`_command`: (op, payload tensor on
+        the mesh's device or None)."""
+        mesh = self._mesh
+        op, size = mesh.from_first(torch.zeros(
+            2, dtype=torch.int64, device=mesh.device)).tolist()
+        if op in (_STEP, _FULLCOV):
+            shape, dtype = (self.batch_size, int(self.model.d)), _F64
+        elif op == _LOAD:
+            shape, dtype = (size,), torch.uint8
+        else:
+            return op, None
+        return op, mesh.from_first(torch.empty(shape, dtype=dtype,
+                                               device=mesh.device))
+
+    def follow(self, reload=None):
+        """On a mesh's other ranks: run the first rank's commands until its
+        :meth:`shutdown`, then return.  Each dispatch of an exact mesh
+        model, each fullcov chunk and each reload runs here as it runs on
+        the first rank.  ``reload`` is a callable returning this rank's
+        model for each in-process ``reload(model)`` the first rank makes
+        (every rank's program builds its own).  A step that fails here
+        fails on the first rank too, which answers its clients with the
+        error; the loop goes on."""
+        if self._mesh is None or self._leader:
+            raise RuntimeError('follow() runs on the ranks of a served mesh '
+                               'other than its first; the first rank serves')
+        from .models.lcgp import LCGP
+        while True:
+            op, payload = self._receive()
+            if op == _STOP:
+                self._closed = True
+                return
+            try:
+                if op == _STEP:
+                    self._live(payload)
+                elif op == _FULLCOV:
+                    self._fullcov_fn()(payload)
+                elif op == _LOAD:
+                    model = LCGP.load(bytes(payload.cpu().numpy()).decode(),
+                                      device=self.device)
+                    model.set_mesh(self._mesh)
+                    self._install(model)
+                elif op == _MODEL:
+                    if reload is None:
+                        raise RuntimeError(
+                            'the first rank reloaded a model: pass '
+                            'follow(reload=...) a callable returning this '
+                            "rank's")
+                    model = reload()
+                    self._check_mesh_of(model)
+                    self._install(model)
+            except Exception:  # noqa: BLE001 — the first rank reports it
+                if op == _MODEL and reload is None:
+                    raise
+                traceback.print_exc()
 
     def _dispatch_loop(self):
         """Dispatcher thread: sole owner of the predict graph.
@@ -519,16 +743,30 @@ class PredictServer:
         Blocks for one pending chunk, then greedily drains more pending
         chunks while their rows still fit the fixed batch shape —
         concurrent clients share a single padded dispatch.  A reload's swap
-        runs here too, between two dispatches.
+        runs here too, between two dispatches.  On a mesh it is the only
+        thread that issues the server's collectives: it broadcasts each
+        command (a collective step's batch, a reload, the stop) before
+        running it, and a heartbeat when idle.
         """
+        if self.device.type == 'cuda':
+            torch.cuda.set_device(self.device)
         bs = self.batch_size
+        idle = None if self._mesh is None else _HEARTBEAT_S
         while True:
-            first = self._queue.get()
+            try:
+                first = self._queue.get(timeout=idle)
+            except queue_mod.Empty:
+                try:
+                    self._command(_NOOP)
+                except Exception:  # noqa: BLE001 — the next command fails
+                    pass
+                continue
             if first is None:        # shutdown sentinel
+                self._command(_STOP)
                 return
             if isinstance(first, _Swap):
                 try:
-                    first.apply()
+                    first.result = first.apply()
                 except Exception as e:   # noqa: BLE001 — reload re-raises
                     first.error = e
                 first.event.set()
@@ -551,6 +789,8 @@ class PredictServer:
                 if pad:
                     batch = np.concatenate(
                         [batch, np.repeat(batch[-1:], pad, axis=0)])
+                if self._step_collective(self.model):
+                    self._command(_STEP, batch)
                 res = self._live(batch)
                 ofs = 0
                 for c in group:
@@ -569,6 +809,8 @@ class PredictServer:
                     d=int(m.d), p=int(m.p), q=int(m.q),
                     precision=m.precision, kernel=m.kernel,
                     inducing=None if m._z is None else int(m._z.shape[0]),
+                    mesh=None if self._mesh is None else dict(
+                        self._mesh.shape),
                     batch_size=self.batch_size,
                     reload_count=self._reload_count)
 
@@ -650,6 +892,7 @@ class PredictServer:
               background: bool = False):
         """Start the HTTP server.  background=True returns (httpd, thread)
         immediately (for tests/embedding); otherwise blocks."""
+        self._lead('serve')
         self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
         if background:
             t = threading.Thread(target=self._httpd.serve_forever,
@@ -664,7 +907,9 @@ class PredictServer:
             self._httpd.server_close()
 
     def shutdown(self):
-        """Stop the HTTP server (if any) and join the dispatcher thread."""
+        """Stop the HTTP server (if any) and join the dispatcher thread.
+        On a mesh the dispatcher's last command returns the followers from
+        :meth:`follow`; on a follower there is nothing to stop."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -673,7 +918,9 @@ class PredictServer:
             if not self._closed:
                 self._closed = True
                 self._queue.put(None)    # stop the dispatcher thread
-        self._dispatcher.join(timeout=5)
+        if self._dispatcher is not None:
+            self._dispatcher.join(timeout=60 if self._mesh is not None
+                                  else 5)
 
 
 def main(argv=None):

@@ -1659,4 +1659,81 @@ def test_dryrun_multichip_on_the_card(dev):
     mode against one device on the card."""
     from lcgp_tpu_torch.parallel import dryrun
     got = dryrun.dryrun_multichip(2)
-    assert got['modes'] == ['comp_out', 'n']
+    assert got['modes'] == ['comp_out', 'n', 'fitc_n']
+
+
+def _fitc_mesh_vs_single(group, dev, spec, **ctor):
+    """n-sharded FITC on the card against one device's FITC on the card:
+    the loss (rtol 1e-9), the gradient in (free, z) (1e-8 of each leaf's
+    largest entry) and the predictions (1e-7 of each output's largest)."""
+    from lcgp_tpu_torch.parallel import tasks
+    x, y, x0 = _mesh_problem()
+    ctor = dict(q=3, inducing=24, **ctor)
+    m = lcgp_tpu_torch.LCGP(y=y, x=x, device=dev, **ctor)
+    free = [t.cpu().numpy() for t in m.free]
+    z = m._z.cpu().numpy()
+    leaves = type(m.free)(*(t.clone().requires_grad_(True) for t in m.free))
+    zt = m._z.clone().requires_grad_(True)
+    v = m._fitc_loss(m._compute_dtype)(leaves, zt)
+    grads = [g.cpu().numpy() for g in torch.autograd.grad(v, [*leaves, zt])]
+    preds = [t.cpu().numpy() for t in m.predict(x0)]
+    for r in group.run(tasks.model, spec, x, y, ctor, [
+            ('set_free', free), ('set_mesh', None), ('z', None),
+            ('loss', None), ('predict', x0)], device=str(dev)):
+        _, _, zr, loss, got = r
+        np.testing.assert_array_equal(zr, z)
+        np.testing.assert_allclose(loss, float(v.detach()), rtol=1e-9)
+        for g, ref in zip(got, preds):
+            np.testing.assert_allclose(g, ref, rtol=0,
+                                       atol=1e-7 * np.abs(ref).max())
+    data = {k: t.cpu().numpy() for k, t in m._data._asdict().items()}
+    for r in group.run(tasks.fitc_loss_and_grad, spec, data, free, z,
+                       device=str(dev), with_z=True):
+        np.testing.assert_allclose(r[0], float(v.detach()), rtol=1e-9)
+        for g, ref in zip(r[1], grads):
+            np.testing.assert_allclose(g, ref, rtol=0,
+                                       atol=1e-8 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize('submethod', ['full', 'rep'])
+def test_fitc_nccl_world_of_one_n_mesh_matches_single_device(dev,
+                                                             submethod):
+    """n-sharded FITC on a one-rank NCCL group on the card: the loss, its
+    gradient in (free, z) through K1, K2 and K5, and the predictions."""
+    from lcgp_tpu_torch.parallel import WorkerGroup
+    with WorkerGroup(1, device=str(dev), backend='nccl', timeout=300) as g:
+        _fitc_mesh_vs_single(g, dev, ('n', 1), submethod=submethod)
+
+
+def test_fitc_two_gloo_ranks_sharing_the_card(dev):
+    """n-sharded FITC on two gloo ranks computing on one card: the ('n',)
+    and the ('comp','n') meshes against one device."""
+    from lcgp_tpu_torch.parallel import WorkerGroup
+    with WorkerGroup(2, device=str(dev), backend='gloo', timeout=300) as g:
+        _fitc_mesh_vs_single(g, dev, ('n', 2))
+        _fitc_mesh_vs_single(g, dev, ('nc', 2, 1))
+
+
+@pytest.mark.parametrize('fitc', [False, True], ids=['exact', 'fitc'])
+def test_served_mesh_model_on_the_card(dev, fitc):
+    """A mesh model served on two gloo ranks sharing the card: the first
+    rank serves (the exact model's step eager, FITC's a captured graph),
+    the second follows; the answers equal the mesh ``model.predict``
+    (1e-10 of each output's largest entry), concurrent clients share
+    dispatches, and a collective reload serves the new parameters."""
+    from lcgp_tpu_torch.parallel import WorkerGroup, tasks
+    x, y, x0 = _mesh_problem()
+    ctor = dict(q=3, inducing=24) if fitc else dict(q=3)
+    free = [t.cpu().numpy() for t in lcgp_tpu_torch.LCGP(
+        y=y, x=x, device=dev, **ctor).free]
+    free2 = [a + 0.1 for a in free]
+    with WorkerGroup(2, device=str(dev), backend='gloo', timeout=300) as g:
+        lead, follower = g.run(tasks.serve_mesh, ('n', 2), x, y, ctor, free,
+                               x0, device=str(dev), reload_free=free2)
+    assert follower['followed'] and 'follow()' in follower['follower_predict']
+    assert lead['dispatches'] < len(lead['clients'])
+    for got, ref in ((lead['served'], lead['ref']),
+                     (lead['served_reload'], lead['ref_reload'])):
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-10 * np.abs(b).max())

@@ -10,7 +10,8 @@ module (``parallel.WorkerGroup``), at that file's sizes and tolerances:
 - the mesh L-BFGS fits ('lbfgs-jax', 'scipy') within 1e-8 of lcgp_tpu's
   single-device fits;
 - every rank's fitted parameters equal bit for bit;
-- FITC and meshes of other axis names refused as lcgp_tpu refuses them.
+- FITC on a ('comp','out') mesh and meshes of other axis names refused as
+  lcgp_tpu refuses them, and FITC on an ('n',) mesh accepted.
 
 The ranks run functions of ``lcgp_tpu_torch.parallel.tasks``; the JAX side
 runs in this process.
@@ -205,8 +206,8 @@ class TestModelMeshFit:
         x, y = _xy(15, n=24, p=4)
         got = _alike(group.run(tasks.refusals, ('co', 2, 2), x, y))
         fitc_set, fitc_fit, fitc_co, bad_fit, bad_set = got
-        for kind, msg in (fitc_set, fitc_fit):
-            assert kind == 'NotImplementedError' and '17c' in msg
+        # n-sharded FITC is ported: set_mesh and fit(mesh=nmesh) succeed
+        assert fitc_set is None and fitc_fit is None
         assert fitc_co[0] == 'ValueError' and 'FITC' in fitc_co[1]
         for kind, msg in (bad_fit, bad_set):
             assert kind == 'ValueError' and 'axis names' in msg

@@ -2,8 +2,8 @@
 distributed Cholesky, solves and logdet, the full and rep losses with their
 hand-written backward, the aux and predict, and the model's ('n',) and
 ('comp','n') routes) against lcgp_tpu on one device: the counterparts of
-``tests/test_nshard.py``'s tests (all but the FITC one, ROADMAP.md item
-17c), on one 4-rank gloo CPU group for the module, at that file's
+``tests/test_nshard.py``'s tests (all but the FITC one, which
+``tests/test_torch_fitc_shard.py`` holds), on one 4-rank gloo CPU group for the module, at that file's
 tolerances:
 
 - factor rtol 1e-10 / atol 1e-12, solve 1e-9 / 1e-11, logdet 1e-10;
@@ -418,7 +418,7 @@ class TestNCMesh:
 
 
 def test_dryrun_multichip():
-    """The port's dryrun: every mesh mode this package has, on 2 gloo CPU
-    ranks, each against one device."""
+    """The port's dryrun: every mesh mode this package has on 2 gloo CPU
+    ranks (the ('comp','n') modes need 4), each against one device."""
     got = dryrun.dryrun_multichip(2, device='cpu')
-    assert got['modes'] == ['comp_out', 'n']
+    assert got['modes'] == ['comp_out', 'n', 'fitc_n']

@@ -352,28 +352,6 @@ def test_rep_submethod_is_ported():
         _close(a, b, **PRED_TOL)
 
 
-class _NMesh:
-    """An ('n',) mesh as the model reads one, without a process group."""
-    axis_names = ('n',)
-    is_first = True
-
-
-@pytest.mark.parametrize('kw,item', [
-    (dict(mesh=_NMesh(), method='adam', steps=1), 'item 17'),
-])
-def test_unported_fit_methods_raise(pair, kw, item):
-    """What fit still leaves unported raises NotImplementedError naming its
-    ROADMAP.md item and leaves the parameters: since fit(mesh=...) was
-    ported, FITC on an n-mesh (item 17c)."""
-    _, tm, _ = pair
-    fitc = lcgp_tpu_torch.LCGP(tm.y_orig, tm.x_orig, q=2, inducing=8,
-                               device='cpu')
-    before = fitc.free
-    with pytest.raises(NotImplementedError, match=item):
-        fitc.fit(**kw)
-    assert fitc.free is before
-
-
 @pytest.mark.parametrize('kw', [dict(submethod='nope'), dict(precision='x'),
                                 dict(kernel='nope')])
 def test_invalid_options_raise_value_error(kw):

@@ -319,16 +319,40 @@ class TestHotReload:
             assert any(np.allclose(a, r, rtol=SRV_RTOL, atol=0)
                        for r in refs), 'an answer mixes two models'
 
-    def test_mesh_model_raises_naming_item_17(self, fitted_model, server_of):
+    def test_mesh_model_raises_naming_item_17(self, fitted_model, server_of,
+                                              monkeypatch):
+        """A mesh model's static signature holds its mesh and selects the
+        eager mesh step: an exact mesh model's latent core is the
+        collective ``nshard.predict_nsharded_core`` on that mesh, run with
+        no graph; a FITC mesh model keeps the replicated FITC core.  (The
+        name dates from the port's refusal of a mesh model; serving one is
+        ``tests/test_torch_serve_mesh.py``'s.)"""
+        from lcgp_tpu_torch.parallel import nshard
         srv = server_of(fitted_model, batch_size=8, warmup=False)
+        mesh = object()
 
         class Meshed:
             _z = None
-            _n_mesh = object()
+            _n_mesh = mesh
             _compute_dtype, _jitter = None, 0.0
             kernel, q_chunk, submethod = 'matern32', None, 'full'
-        with pytest.raises(NotImplementedError, match='item 17d'):
-            srv._latent_core(Meshed())
+            rep_standardize_ybar = True
+        sig = srv._static_sig(Meshed())
+        assert mesh in sig and sig != srv._static_sig(fitted_model)
+        assert srv._step_collective(Meshed())
+        assert not srv._step_collective(fitted_model)
+        seen = []
+
+        def mesh_core(free, data, aux, x0s, m, **kw):
+            seen.append((m, kw))
+            return 'ghat', 'gvar'
+        monkeypatch.setattr(nshard, 'predict_nsharded_core', mesh_core)
+        core = srv._latent_core(Meshed())
+        assert core(dict(free=1, data=2, aux=3), 'x0s') == ('ghat', 'gvar')
+        assert seen == [(mesh, dict(compute_dtype=None, jitter=0.0,
+                                    kernel='matern32'))]
+        Meshed._z = torch.zeros((2, 1), dtype=torch.float64)
+        assert not srv._step_collective(Meshed())
 
 
 class TestMicrobatching:
