@@ -91,9 +91,13 @@ Phases, each printing its own lines:
    cotangent (two launches bit for bit equal) and K5 (the Gram VJP in the
    inducing points, csrc/gram_vjp_x.cu) of each family against their
    plain versions at config 6's (4, 50000, 256), f64 and f32, at a ragged
-   tall shape too, timed with their bounds; then the main
-   path with every count set to 0: the loss gradient in (free, z) on the
-   card against the CPU at a cut of config 6 (n=2000, m=64) for each
+   tall shape too, timed with their bounds; K1 at config 7's one-device
+   Knm and K2 at a random cotangent of its shape, (4, 400000, 512), f32
+   and f64, against their plain versions (over 100,000-row blocks), timed
+   with their bounds (rows matern32_gram_fitc7 and
+   matern32_gram_vjp_fitc7, which take every launch at that shape); then
+   the main path with every count set to 0: the loss gradient in (free,
+   z) on the card against the CPU at a cut of config 6 (n=2000, m=64) for each
    family, dense and streamed; config 6 (n=50,000, m=256): the f64
    loss+grad dense against streamed (n_chunk=8192) to machine precision
    with their launches, one loss+grad in (free, z) per Matern 5/2 and SE,
@@ -104,7 +108,10 @@ Phases, each printing its own lines:
    un-chunked) and config 8 (n=2,000,000, m=512, n_chunk automatic:
    32768, 62 blocks): construction, one timed loss+grad with its launches
    and peak memory (config 8 under a quarter of the un-chunked panels'
-   4 q n m itemsize), the aux and a 500-point predict;
+   4 q n m itemsize), the aux and a 500-point predict, then the same
+   model in f64 ('high'): config 7's 'fast' loss, each gradient leaf and
+   64-point predictions, and config 8's 'fast' loss, within
+   FITC7_FAST_BOUNDS of it (4x the reference's own 'fast' error);
 12. the prediction server (lcgp_tpu_torch/serve.py) with every count set
    to 0: a PredictServer over phase 5's config-4 model at batch 256 (one
    CUDA-graph capture, timed), 64-, 256- and 300-point requests against
@@ -167,9 +174,9 @@ Phases, each printing its own lines:
    card on ('n',) 4 and ('comp','n') 2x2 at config 7: an f64 loss+grad
    against one device's f64 (loss 1e-9 relative, gradient leaves 1e-7 of
    their max |g|); each rank's 'fast' loss+grad, aux and predict the same
-   bits on every rank and held to one device's f64 answer (within 4x one
-   device's own 'fast' error), a
-   2-step Adam fit (and on ('n',) 4 ``refine_inducing(steps=2)``) whose
+   bits on every rank and held to one device's f64 answer within the
+   smaller of FITC7_FAST_BOUNDS and FITC_MESH_ERR_RATIO x one device's
+   own 'fast' error, a 2-step Adam fit (and on ('n',) 4 ``refine_inducing(steps=2)``) whose
    parameters and z are the same bits on every rank, seconds, staged
    bytes, and a rank's loss+grad memory under half the one NCCL rank's;
    then config 4's exact model and config 6's 'fast' FITC model served on
@@ -180,8 +187,23 @@ Phases, each printing its own lines:
    the main keys, f64 under ``*_f64``); every launch of the phase is filed
    on one row by shape (``launches_fitc_mesh_by_shape``): the block rows
    take the ('n',) 4 ranks' f32 launches at the block, the FITC rows of
-   phase 11 the other FITC launches by dtype, the config-4 K1 row the
-   served exact model's.
+   phase 11 the other FITC launches by dtype (the one NCCL rank's f32
+   launches at config 7's panel on the config-7 rows), the config-4 K1
+   row the served exact model's.
+15. the examples (examples/torch_*.py), each main() at its default size
+   on the card with its K1 and K2 launches: the notebook check within its
+   TOLERANCES of examples/notebook_metrics.json; the three rep-1d cases,
+   the three rep-3d cases (the transform check within 1e-10) and the
+   borehole field at BASELINE config 3 ('scipy', 'high'), each within
+   those TOLERANCES of examples/torch_reference_metrics.json (the
+   reference's runs); the multichip demo on four gloo ranks sharing the
+   card (compute mode Default), its differences from one device within
+   MULTICHIP_BOUNDS and K1 and K2 launched on every rank.  Then K1 and K2
+   against their plain versions (f64) at every one-card example's fitted
+   model and at the multichip demo's shapes, and timed at the borehole
+   field's (5, 800, 800) with d=8: new rows ``matern32_gram_examples`` and
+   ``matern32_gram_vjp_examples``, which take the phase's launches
+   (``launches_by_example``).
 
 The line before the last is a JSON object with the kernel table (each
 kernel's times, bound, launches on the main paths and per call, the f32
@@ -760,12 +782,20 @@ def phase_fitted_gram(dev, xs, free_np, kind="matern32"):
     Every entry where the two disagree beyond rtol 1e-12 is recomputed on
     the host in extended precision, and the kernel must agree with that
     within rtol 1e-12."""
-    import torch
     from lcgp_tpu_torch.models import params as P
     from lcgp_tpu_torch.convert import free_params_from_numpy
+    ls, amp, _, nug = P.constrain(free_params_from_numpy(*free_np, dev))
+    gram_at_fitted(xs, ls, amp, nug, kind, "fitted config-4 params")
+
+
+def gram_at_fitted(xs, ls, amp, nug, kind, what):
+    """The kind's same-point Gram at fitted parameters against the plain
+    version within rtol 1e-12, the entries where the two disagree
+    recomputed in extended precision (phase_fitted_gram).  Returns the
+    kernel's max abs error against the better reference."""
+    import torch
     f = family_of(kind)
     label = f.label
-    ls, amp, _, nug = P.constrain(free_params_from_numpy(*free_np, dev))
     C_k = f.launch(xs, xs, ls, amp, nug, same=True)[0]
     C_p, c0_p = f.plain(xs, xs, ls, amp, nug, same=True, want_c0=True)
     check(bool(torch.isfinite(C_k).all()), "fitted-params Gram not finite")
@@ -779,7 +809,8 @@ def phase_fitted_gram(dev, xs, free_np, kind="matern32"):
     err = (C_k - C_p).abs()
     outside = err > F64_ATOL + F64_RTOL * C_p.abs()
     k, i, j = (a.cpu().numpy() for a in outside.nonzero(as_tuple=True))
-    say(f"  fitted config-4 params (min lengthscale {float(ls.min()):.3e}), "
+    worst = float(torch.where(outside, 0.0, err).max())
+    say(f"  {what} (min lengthscale {float(ls.min()):.3e}), "
         f"f64 square C: {label} vs plain max_abs_err={float(err.max()):.3e} "
         f"(max |C| {float(C_p.abs().max()):.3e}); {k.size} of {C_p.numel()} "
         f"entries outside rtol {F64_RTOL:g} atol {F64_ATOL:g}")
@@ -803,6 +834,7 @@ def phase_fitted_gram(dev, xs, free_np, kind="matern32"):
                                             / np.abs(ref))))
             bad += int(np.sum(np.abs(got_k - ref)
                               > F64_ATOL + F64_RTOL * np.abs(ref)))
+            worst = max(worst, float(np.max(np.abs(got_k - ref))))
         say(f"  at those entries, against extended precision "
             f"({np.finfo(ld).eps:.1e} eps): {label} max_rel_err={rel_k:.3e}, "
             f"plain max_rel_err={rel_p:.3e}")
@@ -811,6 +843,7 @@ def phase_fitted_gram(dev, xs, free_np, kind="matern32"):
               "entries")
     del C_k, C_p, err, outside
     torch.cuda.empty_cache()
+    return worst
 
 
 def loss_operands(m, free):
@@ -2727,6 +2760,48 @@ def phase_kinds(dev, x, y, xte, ytrue, free_np, xs, registers):
 CONFIG6_RECORDED = {"rmse": 0.067, "nrmse": 0.026, "coverage": 1.00}
 FITC_ADAM_STEPS = 200
 REFINE_STEPS = 20
+# One device's 'fast' FITC at config 7's init against the card's own f64
+# ('high'): 4x the reference's (lcgp_tpu's) own 'fast' error on the CPU.
+# The loss (relative), ypred and yconfvar at the 64 held-out points (of the
+# largest entry) are 4x lcgp_tpu's errors at config 7 read on a CPU
+# (1.145e-3, 0.0180, 3.50e-3; a full-size run no script here repeats);
+# ypredvar is held to yconfvar's bound.  Each gradient leaf (of its max
+# |g|) is 4x lcgp_tpu's error at FITC7_REFERENCE_ERRORS' largest n: its
+# un-chunked jax.grad at 400,000 rows needs ~16 GB a component on the CPU,
+# and its error grows with n.  Phase 11 holds config 7 to these, config
+# 8's loss to the loss bound; phase 14 holds every rank of the meshes to
+# them and to FITC_MESH_ERR_RATIO x one device's own error.
+FITC7_FAST_BOUNDS = dict(loss=4.6e-3, ypred=0.072, ypredvar=0.014,
+                         yconfvar=0.014, lLmb=0.06387, lLmb0=0.2676,
+                         lsigma2s=0.007197, lnugGPs=0.0652)
+# lcgp_tpu's own 'fast' error on the first n rows of config 7's field with
+# config 7's inducing points and request (fitc7_inputs), at the init, read
+# on a CPU by
+#   PYTHONPATH=. python tools/fitc7_reference_errors.py <n>
+FITC7_REFERENCE_ERRORS = {
+    20_000: dict(loss=2.7416e-05, lLmb=1.3679e-03, lLmb0=2.2427e-03,
+                 lsigma2s=4.4413e-04, lnugGPs=1.2467e-03, ypred=1.0975e-04,
+                 ypredvar=2.8537e-07, yconfvar=2.4331e-04),
+    100_000: dict(loss=1.6764e-04, lLmb=1.5968e-02, lLmb0=6.6897e-02,
+                  lsigma2s=1.7992e-03, lnugGPs=1.6300e-02, ypred=1.8766e-03,
+                  ypredvar=3.3620e-07, yconfvar=8.3803e-04),
+}
+# a mesh's 'fast' answers within this many times one device's own error
+FITC_MESH_ERR_RATIO = 4.0
+
+
+def fitc7_fast_bounds(n=None):
+    """FITC7_FAST_BOUNDS, each capped at 4x the reference's own error at n
+    rows of config 7's field where FITC7_REFERENCE_ERRORS holds it."""
+    ref = FITC7_REFERENCE_ERRORS.get(n, {})
+    return {k: min(b, 4 * ref[k]) if k in ref else b
+            for k, b in FITC7_FAST_BOUNDS.items()}
+
+
+FITC_LEAVES = ("lLmb", "lLmb0", "lsigma2s", "lnugGPs")
+# the kernel rows of config 7's one-device panel, (4, 400000, 512): K1 at
+# Knm and K2 at its cotangent (f32, the path's; f64 under *_f64)
+FITC_ROWS_7 = ("matern32_gram_fitc7", "matern32_gram_vjp_fitc7")
 K5_SOURCE = "lcgp_tpu_torch/csrc/gram_vjp_x.cu"
 K5_REPLACES = ("none (jax.grad of the jnp Gram in its second operand): "
                "lcgp_tpu/models/sparse.py:76 (_fitc_core's Gram stacks), "
@@ -2989,6 +3064,51 @@ def z_grad_rtol(m):
     return max(GRAD_RTOL, 10 * float(np.finfo(np.float64).eps) * kmm_cond(m))
 
 
+def fast_vs_f64_check(tag, got, ref, flat, one=None, loss_only=False,
+                      bounds=None):
+    """A config-7 'fast' answer, got = (loss, flat gradient, [ypred,
+    ypredvar, yconfvar]), against the f64 one: the loss relative, each
+    gradient leaf of its max |g|, each output of its largest entry, each
+    within ``bounds`` (FITC7_FAST_BOUNDS by default).  ``one``, one
+    device's 'fast' answer, also caps each bound at FITC_MESH_ERR_RATIO
+    times one device's own error; ``loss_only`` holds the loss alone.
+    Returns the errors."""
+    bounds = FITC7_FAST_BOUNDS if bounds is None else bounds
+
+    def parts(ans):
+        v, g, pred = ans
+        out = [("loss", np.asarray([v], dtype=np.float64))]
+        if loss_only:
+            return out
+        g = np.asarray(g.cpu() if hasattr(g, "cpu") else g,
+                       dtype=np.float64)
+        start = 0
+        for nm, size in zip(FITC_LEAVES, flat.sizes):
+            out.append((nm, g[start:start + size]))
+            start += size
+        return out + list(zip(("ypred", "ypredvar", "yconfvar"), pred))
+    errs = {}
+    rows = zip(parts(got), parts(ref), parts(one) if one is not None
+               else [(None, None)] * 8)
+    for (name, a), (_, c), (_, b) in rows:
+        a, c = (np.asarray(t, dtype=np.float64) for t in (a, c))
+        top = float(np.abs(c).max())
+        err = float(np.abs(a - c).max()) / top
+        bound, extra = bounds[name], ""
+        if b is not None:
+            e1 = float(np.abs(np.asarray(b, np.float64) - c).max()) / top
+            bound = min(bound, FITC_MESH_ERR_RATIO * e1)
+            extra = (f"; min of {bounds[name]:g} and {FITC_MESH_ERR_RATIO:g}"
+                     f"x one device's 'fast' {e1:.3e}")
+        say(f"  {tag} {name} vs f64: {err:.3e} "
+            f"({'relative' if name == 'loss' else 'of its largest'}; "
+            f"bound {bound:.4g}{extra})")
+        check(err <= bound, f"{tag}: 'fast' {name} {err:.3e} beyond "
+              f"{bound:.4g} of the f64 answer")
+        errs[name] = err
+    return errs
+
+
 def compare_grads(name, got, ref, flat, rtol, z_rtol=None):
     """Each leaf of a flat gradient within rtol (the z leaf within z_rtol,
     rtol when None) of the leaf's max |g|."""
@@ -3156,7 +3276,11 @@ def phase_fitc_scale(dev, idx):
     8 (n=2,000,000, m=512, n_chunk automatic) at 'fast': construction, one
     timed loss+grad with its launches and peak memory, the aux and a
     500-point predict.  Config 8 fails if its peak memory exceeds a quarter
-    of the un-chunked panels' 4 q n m itemsize.  Returns a dict."""
+    of the un-chunked panels' 4 q n m itemsize.  Then the same model in
+    'high' (f64): at config 7 the 'fast' loss, each gradient leaf and the
+    64-point predictions are held to it within FITC7_FAST_BOUNDS, at
+    config 8 the 'fast' loss (one f64 streamed pass) within its loss
+    bound.  Returns a dict."""
     import torch
     from lcgp_tpu_torch import LCGP
     x, y, xte, ytrue, kw = fitc_config(idx)
@@ -3165,14 +3289,14 @@ def phase_fitc_scale(dev, idx):
     m = LCGP(y, x, precision="fast", device=dev, **kw)
     torch.cuda.synchronize()
     out = {"construct_s": time.perf_counter() - t0, "n_chunk": m.n_chunk}
-    del y
     n, q, mm = m.n, int(m.q), int(m._z.shape[0])
     nb = -(-n // m.n_chunk) if m.n_chunk else 0
     out["n_blocks"] = nb
     before = fitc_counts()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    first = timed_s(lambda: fitc_loss_grad(m, with_z=False))
+    fast = []
+    first = timed_s(lambda: fast.append(fitc_loss_grad(m, with_z=False)))
     out["loss_grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["loss_grad_peak_above_data_gb"] = (
         torch.cuda.max_memory_allocated() - base) / 1e9
@@ -3213,17 +3337,68 @@ def phase_fitc_scale(dev, idx):
         f"{out['predict_s']:.3f} s, peak {out['serve_peak_gb']:.3f} GB; at "
         f"the init (no fit): rmse {out['rmse']:.4f}, coverage "
         f"{out['coverage']:.3f}")
+    v32, g32, flat = fast[0]
+    x0 = xte[:64]
+    pred32 = model_outs(m, x0) if idx == 7 else None
+    # the same inducing points, not chosen again
+    kw["inducing"] = m.tx_x(m._z).cpu().numpy()
+    del m, fast
+    torch.cuda.empty_cache()
+    # the card's own f64 answer
+    t0 = time.perf_counter()
+    m = LCGP(y, x, precision="high", device=dev, **kw)
+    if idx == 7:
+        v64, g64, _ = fitc_loss_grad(m, with_z=False)
+        ref = (float(v64), g64, model_outs(m, x0))
+    else:
+        with torch.no_grad():
+            ref = (float(m.loss()), None, None)
+    torch.cuda.synchronize()
+    out["f64_s"] = time.perf_counter() - t0
+    say(f"  config {idx} 'high' (f64, n_chunk={m.n_chunk}): loss "
+        f"{ref[0]:.12e}, 'fast' {float(v32):.12e}; {out['f64_s']:.2f} s")
+    out["fast_vs_f64"] = fast_vs_f64_check(
+        f"config {idx} one device 'fast'", (float(v32), g32, pred32), ref,
+        flat, loss_only=idx != 7)
     del m
     torch.cuda.empty_cache()
     return out
 
 
-def phase_fitc(dev, registers):
+@contextlib.contextmanager
+def launches_at(n1, n2, kind="matern32"):
+    """Tally the family's Gram and VJP launches whose operands are (n1, d)
+    and (n2, d), by kernel and dtype: yields {('gram' or 'vjp', 'f32' or
+    'f64'): launches}.  It wraps the family's launchers on the instance,
+    beside the counters, which it leaves as they are."""
+    fam = family_of(kind)
+    tally = {}
+
+    def wrap(which, fn):
+        def launch(x1, x2, *args, **kwargs):
+            out = fn(x1, x2, *args, **kwargs)
+            if x1.shape[0] == n1 and x2.shape[0] == n2:
+                key = (which, "f32" if x1.dtype.itemsize == 4 else "f64")
+                tally[key] = tally.get(key, 0) + 1
+            return out
+        return launch
+    fam.launch = wrap("gram", fam.launch)
+    fam.launch_vjp = wrap("vjp", fam.launch_vjp)
+    try:
+        yield tally
+    finally:
+        del fam.launch, fam.launch_vjp
+
+
+def phase_fitc(dev, card, registers):
     """Phase 11: the FITC path.  The kernels against their plain versions
-    at config 6's shapes (part 1), then the main path with every count set
-    to 0 just before it and read just after: the card against the CPU at a
-    small cut (part 2), config 6 (part 3), config 7 and config 8 (parts 4
-    and 5).  Returns the kernel records and config 6's 'fast' model."""
+    at config 6's shapes and at config 7's one-device panel (part 1), then
+    the main path with every count set to 0 just before it and read just
+    after: the card against the CPU at a small cut (part 2), config 6 (part
+    3), config 7 and config 8 (parts 4 and 5).  Config 7's launches at its
+    panel, (4, 400000, 512), are filed on its own rows, every other FITC
+    launch on the rows of config 6's shapes by dtype.  Returns the kernel
+    records and config 6's 'fast' model."""
     import torch
     from lcgp_tpu_torch.models.sparse import select_inducing
     x, _, _, _, kw = fitc_config(6)
@@ -3234,6 +3409,7 @@ def phase_fitc(dev, registers):
     records = phase_fitc_kernels(dev, xs, z)
     del xs, z
     torch.cuda.empty_cache()
+    records7 = phase_fitc7_kernels(dev, card)
 
     reset_all_counts()
     say("  == the main path, every kernel's counts set to 0")
@@ -3243,9 +3419,12 @@ def phase_fitc(dev, registers):
     say("  -- config 6 (n=50,000, d=2, p=20, q=4, m=256)")
     timings = {}
     timings["config6"], m6 = phase_fitc_config6(dev)
-    for idx in (7, 8):
-        say(f"  -- config {idx}")
-        timings[f"config{idx}"] = phase_fitc_scale(dev, idx)
+    say("  -- config 7")
+    with launches_at(fitc_config(7)[0].shape[0], 512) as at7:
+        timings["config7"] = phase_fitc_scale(dev, 7)
+    say(f"  config 7's launches at its panel (4, 400000, 512): {at7}")
+    say("  -- config 8")
+    timings["config8"] = phase_fitc_scale(dev, 8)
     counts = fitc_counts()
     say(f"  phase 11 main path launches (Gram, VJP, K5) f64 / f32: {counts}")
     say(f"  phase 11 timings JSON: {json.dumps(timings)}")
@@ -3255,6 +3434,9 @@ def phase_fitc(dev, registers):
             1 if "_vjp" in rec["name"] else 0
         f32 = rec["name"].endswith("_f32")
         rec["launches"] = counts[kind][int(f32)][which]
+        if kind == "matern32" and which < 2:
+            rec["launches"] -= at7.get((("gram", "vjp")[which],
+                                        ("f64", "f32")[int(f32)]), 0)
         check(rec["launches"] > 0, f"{rec['name']} did not launch on phase "
               "11's main path")
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
@@ -3262,8 +3444,20 @@ def phase_fitc(dev, registers):
         rec["registers"] = registers_of(registers, kernel,
                                         family_of(kind).policy,
                                         "float" if f32 else "double")
+    for rec, which in zip(records7, ("gram", "vjp")):
+        rec["launches_f32"] = at7.get((which, "f32"), 0)
+        rec["launches_f64"] = at7.get((which, "f64"), 0)
+        rec["launches"] = rec["launches_f32"] + rec["launches_f64"]
+        check(rec["launches_f32"] > 0 and rec["launches_f64"] > 0,
+              f"{rec['name']} did not launch at its shape, f32 and f64, on "
+              "phase 11's main path")
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["share_of_bound_f64"] = rec["bound_ms_f64"] / rec["ms_f64"]
+        rec["registers"] = registers_of(
+            registers, KERNEL_TEMPLATES["matern32"][which == "vjp"],
+            "Matern32", "float")
     records[0]["model"] = timings
-    return records, m6
+    return records + records7, m6
 
 
 # ---------------------------------------------------------------------------
@@ -4108,11 +4302,6 @@ SERVE_MESH_REQUESTS = 30
 # 'fast' (f32 panel work): the one-rank refine's loss within this of one
 # device's (relative)
 FITC_MESH_RTOL = 1e-5
-# the four ranks reorder f32 sums over n: each of their answers (loss,
-# gradient leaf, output) is held to the f64 ('high') one-device answer,
-# within this many times one device's own 'fast' error against it (at
-# least 1e-6 of the f64 answer's largest entry)
-FITC_MESH_ERR_RATIO = 4.0
 # the same loss+grad in f64 on the four ranks against one device's f64:
 # the loss relative, each gradient leaf as a share of its max |g| (the
 # sums reordered over n; 'fast''s error shows M = I + G amplifying its
@@ -4126,6 +4315,8 @@ FITC_ROWS_F64 = ("matern32_gram_fitc", "matern32_gram_vjp_fitc",
 FITC_ROWS_F32 = tuple(f"{r}_f32" for r in FITC_ROWS_F64)
 FITC_ROWS_BLOCK = ("matern32_gram_fitc_block",
                    "matern32_gram_vjp_fitc_block", "gram_vjp_x_fitc_block")
+# the one NCCL rank's f32 launches at config 7's one-device panel
+FITC_ROWS_7_MESH = (*FITC_ROWS_7, FITC_ROWS_F32[2])
 
 
 class FitcMeshCounts:
@@ -4146,13 +4337,13 @@ class FitcMeshCounts:
             self.add(FITC_ROWS_F64[i], f64_label, delta[2 * i])
             self.add(f32_rows[i], f32_label, delta[2 * i + 1])
 
-    def call(self, f64_label, f32_label, fn):
+    def call(self, f64_label, f32_label, fn, f32_rows=FITC_ROWS_F32):
         from lcgp_tpu_torch.parallel.tasks import _fitc_launches
         before = _fitc_launches("matern32")
         out = fn()
         self.add_fitc(tuple(b - a for a, b in
                             zip(before, _fitc_launches("matern32"))),
-                      f64_label, f32_label)
+                      f64_label, f32_label, f32_rows)
         return out
 
     def total(self, row):
@@ -4213,7 +4404,7 @@ def phase_fitc_mesh_one_rank(dev, card, counts):
                    free=[t.cpu().numpy() for t in single.free],
                    data={k: t.cpu().numpy() for k, t in
                          single._data._asdict().items()})
-        got = counts.call(kmm, knm, lambda: vg_m(z0))
+        got = counts.call(kmm, knm, lambda: vg_m(z0), FITC_ROWS_7_MESH)
         (v, g), (vr, gr) = got, ref["vg"]
         rel = abs(v - vr) / abs(vr)
         say(f"  ('n',) 1 rank, config 7 'fast' at the init: loss {v:.17e} vs "
@@ -4224,7 +4415,8 @@ def phase_fitc_mesh_one_rank(dev, card, counts):
         compare_grads("('n',) 1 rank FITC gradient", torch.as_tensor(g),
                       torch.as_tensor(gr), flat, 1e-6)
         t_s = [timed_s(lambda: vg_s(z0)) for _ in range(3)]
-        t_m = [timed_s(lambda: counts.call(kmm, knm, lambda: vg_m(z0)))
+        t_m = [timed_s(lambda: counts.call(kmm, knm, lambda: vg_m(z0),
+                                          FITC_ROWS_7_MESH))
                for _ in range(3)]
         say(f"  {tag} config 7 'fast' warm loss+grad: ('n',) 1 rank "
             f"{statistics.median(t_m):.4f} s, one device "
@@ -4233,14 +4425,15 @@ def phase_fitc_mesh_one_rank(dev, card, counts):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        counts.call(kmm, knm, lambda: vg_m(z0))
+        counts.call(kmm, knm, lambda: vg_m(z0), FITC_ROWS_7_MESH)
         peak1 = torch.cuda.max_memory_allocated() - resident
         say(f"  {tag} one loss+grad's memory on the one rank: "
             f"{peak1 / 1e9:.3f} GB beyond {resident / 1e9:.3f} GB resident")
 
         a_s = single._ensure_aux()
         t_aux = timed_s(lambda: counts.call(
-            kmm, knm, meshed.compute_aux_predictive_quantities))
+            kmm, knm, meshed.compute_aux_predictive_quantities,
+            FITC_ROWS_7_MESH))
         say(f"  {tag} ('n',) 1 rank FITC aux: {t_aux:.4f} s")
         for name in ("Lmm", "alpha", "inner", "u"):
             compare_normwise(f"('n',) 1 rank aux {name} vs one device",
@@ -4260,7 +4453,7 @@ def phase_fitc_mesh_one_rank(dev, card, counts):
             FITC_ROWS_F32[2])
         t0 = time.perf_counter()
         l_m = counts.call(kmm, knm, lambda: meshed.refine_inducing(
-            steps=steps, learning_rate=1e-3))
+            steps=steps, learning_rate=1e-3), FITC_ROWS_7_MESH)
         torch.cuda.synchronize()
         t_ref = time.perf_counter() - t0
         k5 = counts.total(FITC_ROWS_F64[2]) + counts.total(
@@ -4336,21 +4529,33 @@ def phase_serve_mesh_one_rank(dev, card, nmesh, counts):
     return dict(exact_one_rank_p50_ms=p50, exact_one_rank_p95_ms=p95)
 
 
-def phase_fitc_block_kernels(dev, card, x, z_orig):
-    """Phase 14, part 2: K1 (Knm), K2 (cross mode at a random cotangent)
-    and K5 at the ('n',) 4 block of config 7, (4, 100000, 512) with d=2,
-    f32 (the path's) and f64, against their plain versions, timed in turns
-    with their bounds.  Returns the three kernel records, f32 in the main
-    keys, f64 under ``*_f64``."""
+def by_rows(fn, x1, M=None, step=None):
+    """A plain version over row blocks of x1 (and of the cotangent M) of
+    ``step`` rows, so that its intermediates fit beside the kernel's
+    operands: a Gram's blocks concatenated, a VJP's sums added up; one call
+    when ``step`` is None or covers x1."""
+    import torch
+    n = x1.shape[0]
+    if step is None or n <= step:
+        return fn(x1) if M is None else fn(x1, M)
+    if M is None:
+        return torch.cat([fn(x1[s:s + step]) for s in range(0, n, step)],
+                         dim=1)
+    parts = [fn(x1[s:s + step], M[:, s:s + step]) for s in range(0, n, step)]
+    return tuple(sum(p[i] for p in parts) for i in range(len(parts[0])))
+
+
+def fitc_panel_kernels(dev, card, xs, z, rows, what, with_k5=True,
+                       plain_step=None):
+    """K1 (Knm), K2 (cross mode at a random cotangent) and, with_k5, K5 at
+    the panel (q=4, xs's rows, z's columns), f32 (the path's) and f64,
+    against their plain versions (over row blocks of ``plain_step``),
+    timed in turns with their bounds.  Returns the kernel records, named
+    ``rows``, f32 in the main keys and f64 under ``*_f64``."""
     import torch
     from lcgp_tpu_torch.ops._build import build
     lib = build().lib
     fam = family_of("matern32")
-    x_min, x_max = x.min(0), x.max(0)
-    nb = x.shape[0] // FITC_MESH_RANKS
-    xs = torch.as_tensor((x[nb:2 * nb] - x_min) / (x_max - x_min),
-                         device=dev)
-    z = torch.as_tensor((z_orig - x_min) / (x_max - x_min), device=dev)
     q, n, d, m = 4, xs.shape[0], xs.shape[1], z.shape[0]
     rng = np.random.default_rng(61)
     out = {}
@@ -4368,118 +4573,144 @@ def phase_fitc_block_kernels(dev, card, x, z_orig):
             device=dev).manual_seed(62), dtype=dt, device=dev)
         b64 = [t.double() for t in (x1, x2, ls_, amp_, nug_)]
         ins = (x1.numel() + x2.numel() + ls_.numel() + 2 * q) * size
-        lab = f"{tag} (q={q}, nb={n}, m={m}, d={d})"
-        err_g = compare(f"K1 at the ('n',) 4 block {lab} vs plain f64",
+        lab = f"{tag} (q={q}, n={n}, m={m}, d={d})"
+
+        def plain_gram(*ts):
+            return by_rows(lambda a: fam.plain(a, *ts[1:], same=False),
+                           ts[0], step=plain_step)
+
+        def plain_vjp(fn, ts, Mc):
+            return by_rows(lambda a, c: fn(a, *ts[1:], same=False, cbar=c),
+                           ts[0], Mc, plain_step)
+        res = []
+        err_g = compare(f"K1 at the {what} {lab} vs plain f64",
                         fam.launch(x1, x2, ls_, amp_, nug_, same=False)[0],
-                        fam.plain(*b64, same=False), rtol, atol)
-        t_g = time_pair(f"K1 block {lab}",
+                        plain_gram(*b64), rtol, atol)
+        t_g = time_pair(f"K1 {what} {lab}",
                         raw_gram(lib, x1, x2, ls_, amp_, nug_, False),
-                        lambda: fam.plain(x1, x2, ls_, amp_, nug_,
-                                          same=False),
+                        lambda: plain_gram(x1, x2, ls_, amp_, nug_),
                         q * n * m * size, plain_reps=3)
-        b_g = say_bound(f"K1 block {tag}", t_g[0], q * n * m * size + ins,
+        b_g = say_bound(f"K1 {what} {tag}", t_g[0], q * n * m * size + ins,
                         q * n * m * k1_ops_per_entry(d, False), rate)
+        res.append((err_g, t_g, b_g))
         got = fam.launch_vjp(x1, x2, ls_, amp_, nug_, same=False, M=M)
         again = fam.launch_vjp(x1, x2, ls_, amp_, nug_, same=False, M=M)
-        ref = fam.vjp_plain(*b64, same=False, cbar=M.double())
-        scale = fam.scale(*b64, same=False, cbar=M.double())
+        ref = plain_vjp(fam.vjp_plain, b64, M.double())
+        scale = plain_vjp(fam.scale, b64, M.double())
         torch.cuda.synchronize()
         check(all(torch.equal(u, v) for u, v in zip(got, again)),
-              f"K2 at the block {lab}: two launches differ")
-        err_v = compare_vjp(f"K2 at a random block cotangent {lab} vs plain;"
-                            " two launches the same bits", got, ref, scale,
-                            vjp_bound=vjp_bound, kernel="K2")
-        t_v = time_pair(f"K2 block {lab}",
+              f"K2 at the {what} {lab}: two launches differ")
+        err_v = compare_vjp(f"K2 at a random {what} cotangent {lab} vs "
+                            "plain; two launches the same bits", got, ref,
+                            scale, vjp_bound=vjp_bound, kernel="K2")
+        t_v = time_pair(f"K2 {what} {lab}",
                         raw_vjp(lib, x1, ls_, amp_, nug_, M, None, 0.0, None,
                                 x2=x2),
-                        lambda: fam.vjp_plain(x1, x2, ls_, amp_, nug_,
-                                              same=False, cbar=M),
+                        lambda: plain_vjp(fam.vjp_plain,
+                                          (x1, x2, ls_, amp_, nug_), M),
                         M.numel() * size, "read", plain_reps=3)
-        b_v = say_bound(f"K2 block {tag}", t_v[0],
+        b_v = say_bound(f"K2 {what} {tag}", t_v[0],
                         M.numel() * size + ins + q * (d + 2) * size,
                         q * n * m * (k2_ops_per_entry(d) - 2), rate)
-        got = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
-        again = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
-        ref = fam.vjp_x_plain(*b64, M=M.double())
-        scale = fam.scale_x(*b64, M=M.double())
-        torch.cuda.synchronize()
-        err = (got.double() - ref).abs()
-        share = float((err / scale.clamp_min(1e-300)).max())
-        say(f"  K5 at the block {lab} vs plain: max_abs_err="
-            f"{float(err.max()):.3e}, max err/magnitude={share:.3e} (bound "
-            f"{vjp_bound:g}); two launches the same bits: "
-            f"{torch.equal(got, again)}")
-        check(bool(torch.isfinite(got).all()), "K5 at the block not finite")
-        check(bool((err <= vjp_bound * scale).all()),
-              f"K5 at the block {tag} outside {vjp_bound:g} x magnitude")
-        check(torch.equal(got, again), "K5 at the block is not "
-              "deterministic")
-        t_x = time_pair(f"K5 block {lab}",
-                        raw_vjp_x(lib, x1, x2, ls_, amp_, nug_, M,
-                                  "matern32"),
-                        lambda: fam.vjp_x_plain(x1, x2, ls_, amp_, nug_,
-                                                M=M),
-                        M.numel() * size, "read", plain_reps=3)
-        b_x = say_bound(f"K5 block {tag}", t_x[0],
-                        M.numel() * size + ins + m * d * size,
-                        q * n * m * k5_ops_per_entry("matern32", d), rate)
-        out[tag] = [(err_g, t_g, b_g), (err_v, t_v, b_v),
-                    (float(err.max()), t_x, b_x)]
-        say(f"  [{card}] at the ('n',) 4 block {lab}: K1 {t_g[0]:.4f} ms "
-            f"(plain {t_g[1]:.4f}, bound {b_g[0]:.4f}), K2 {t_v[0]:.4f} "
-            f"(plain {t_v[1]:.4f}, bound {b_v[0]:.4f}), K5 {t_x[0]:.4f} "
-            f"(plain {t_x[1]:.4f}, bound {b_x[0]:.4f})")
-        del M, got, again, ref, scale, err
+        res.append((err_v, t_v, b_v))
+        del got, again, ref, scale
+        if with_k5:
+            got = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
+            again = fam.launch_vjp_x(x1, x2, ls_, amp_, nug_, M=M)
+            ref = fam.vjp_x_plain(*b64, M=M.double())
+            scale = fam.scale_x(*b64, M=M.double())
+            torch.cuda.synchronize()
+            err = (got.double() - ref).abs()
+            share = float((err / scale.clamp_min(1e-300)).max())
+            say(f"  K5 at the {what} {lab} vs plain: max_abs_err="
+                f"{float(err.max()):.3e}, max err/magnitude={share:.3e} "
+                f"(bound {vjp_bound:g}); two launches the same bits: "
+                f"{torch.equal(got, again)}")
+            check(bool(torch.isfinite(got).all()),
+                  f"K5 at the {what} not finite")
+            check(bool((err <= vjp_bound * scale).all()),
+                  f"K5 at the {what} {tag} outside {vjp_bound:g} x "
+                  "magnitude")
+            check(torch.equal(got, again), f"K5 at the {what} is not "
+                  "deterministic")
+            t_x = time_pair(f"K5 {what} {lab}",
+                            raw_vjp_x(lib, x1, x2, ls_, amp_, nug_, M,
+                                      "matern32"),
+                            lambda: fam.vjp_x_plain(x1, x2, ls_, amp_, nug_,
+                                                    M=M),
+                            M.numel() * size, "read", plain_reps=3)
+            b_x = say_bound(f"K5 {what} {tag}", t_x[0],
+                            M.numel() * size + ins + m * d * size,
+                            q * n * m * k5_ops_per_entry("matern32", d),
+                            rate)
+            res.append((float(err.max()), t_x, b_x))
+            del got, again, ref, scale, err
+        out[tag] = res
+        say(f"  [{card}] at the {what} {lab}: " + ", ".join(
+            f"{k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {b[0]:.4f})"
+            for k, (_, t, b) in zip(("K1", "K2", "K5"), res)))
+        del M
         torch.cuda.empty_cache()
-    shape = f"('n',) 4 block of config 7, q={q} nb={n} m={m} d={d}"
+    shape = f"{what}, q={q} n={n} m={m} d={d}"
     records = []
-    for i, (name, src, rep, what) in enumerate((
-            (FITC_ROWS_BLOCK[0], K1_SOURCE, K1_REPLACES, "Knm"),
-            (FITC_ROWS_BLOCK[1], K2_SOURCE, K2_REPLACES,
-             "random cross cotangent"),
-            (FITC_ROWS_BLOCK[2], K5_SOURCE, K5_REPLACES,
-             "(q, n, m) cotangent"))):
+    for i, (name, src, rep, kind) in enumerate(zip(
+            rows, (K1_SOURCE, K2_SOURCE, K5_SOURCE),
+            (K1_REPLACES, K2_REPLACES, K5_REPLACES),
+            ("Knm", "random cross cotangent", "(q, n, m) cotangent"))):
         (e32, t32, b32), (e64, t64, b64_) = out["f32"][i], out["f64"][i]
         records.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             max_abs_err=e32, ms=t32[0], plain_ms=t32[1], bound_ms=b32[0],
             bound_by=b32[1], library_ms=None, max_abs_err_f64=e64,
             ms_f64=t64[0], plain_ms_f64=t64[1], bound_ms_f64=b64_[0],
-            bound_by_f64=b64_[1], shape=f"{what}, f32 (f64 in *_f64), "
+            bound_by_f64=b64_[1], shape=f"{kind}, f32 (f64 in *_f64), "
                                         f"{shape}"))
     return records
 
 
+def phase_fitc_block_kernels(dev, card, x, z_orig):
+    """Phase 14, part 2: K1 (Knm), K2 (cross mode at a random cotangent)
+    and K5 at the ('n',) 4 block of config 7, (4, 100000, 512) with d=2,
+    f32 (the path's) and f64, against their plain versions, timed in turns
+    with their bounds.  Returns the three kernel records, f32 in the main
+    keys, f64 under ``*_f64``."""
+    import torch
+    x_min, x_max = x.min(0), x.max(0)
+    nb = x.shape[0] // FITC_MESH_RANKS
+    xs = torch.as_tensor((x[nb:2 * nb] - x_min) / (x_max - x_min),
+                         device=dev)
+    z = torch.as_tensor((z_orig - x_min) / (x_max - x_min), device=dev)
+    return fitc_panel_kernels(dev, card, xs, z, FITC_ROWS_BLOCK,
+                              "('n',) 4 block of config 7")
+
+
+def phase_fitc7_kernels(dev, card):
+    """Phase 11, part 1b: K1 at config 7's one-device Knm and K2 at a
+    random cotangent of its shape, (4, 400000, 512) with d=2, f32 (the
+    path's) and f64, against their plain versions (over blocks of 100,000
+    rows), timed in turns with their bounds.  Returns the two records."""
+    import torch
+    x, _, _, z_orig = fitc7_inputs()
+    x_min, x_max = x.min(0), x.max(0)
+    xs = torch.as_tensor((x - x_min) / (x_max - x_min), device=dev)
+    z = torch.as_tensor((z_orig - x_min) / (x_max - x_min), device=dev)
+    recs = fitc_panel_kernels(dev, card, xs, z, FITC_ROWS_7,
+                              "one-device panel of config 7", with_k5=False,
+                              plain_step=100_000)
+    del xs, z
+    torch.cuda.empty_cache()
+    return recs
+
+
 def fitc_mesh_reference_check(spec, r, ref):
     """A rank's config-7 'fast' answers at the init (the loss, each
-    gradient leaf, each 64-point output) against one device's f64 ones:
-    each error within FITC_MESH_ERR_RATIO times one device's own 'fast'
-    error (at least 1e-6 of the f64 answer's largest entry)."""
-    tag = f"{spec} rank {r['rank']}"
-
-    def leaves(vg):
-        v, g = vg
-        g = np.asarray(g, dtype=np.float64)
-        parts, start = [("loss", np.asarray([v]))], 0
-        for nm, size in zip(("lLmb", "lLmb0", "lsigma2s", "lnugGPs"),
-                            ref["flat"].sizes):
-            parts.append((f"gradient {nm}", g[start:start + size]))
-            start += size
-        return parts
-    got = leaves((r["loss"], r["grad"])) + list(zip(
-        ("ypred", "ypredvar", "yconfvar"), r["predict"]))
-    one = leaves(ref["vg"]) + list(zip(("ypred",) * 3, ref["predict"]))
-    f64 = leaves(ref["vg64"]) + list(zip(("ypred",) * 3, ref["predict64"]))
-    for (name, a), (_, b), (_, c) in zip(got, one, f64):
-        a, b, c = (np.asarray(t, dtype=np.float64) for t in (a, b, c))
-        top = float(np.abs(c).max())
-        e_mesh, e_one = (float(np.abs(t - c).max()) for t in (a, b))
-        bound = max(FITC_MESH_ERR_RATIO * e_one, 1e-6 * top)
-        say(f"  {tag} {name} vs one device's f64: error {e_mesh:.3e} "
-            f"({e_mesh / top:.3e} of its largest), one device's 'fast' "
-            f"{e_one:.3e}, bound {bound:.3e}")
-        check(e_mesh <= bound, f"{tag}: {name} beyond {bound:.3e} of one "
-              "device's f64 answer")
+    gradient leaf, each 64-point output) against one device's f64 ones,
+    each within the smaller of FITC7_FAST_BOUNDS and FITC_MESH_ERR_RATIO x
+    one device's own 'fast' error."""
+    fast_vs_f64_check(f"{spec} rank {r['rank']}",
+                      (r["loss"], r["grad"], r["predict"]),
+                      (*ref["vg64"], ref["predict64"]), ref["flat"],
+                      one=(*ref["vg"], ref["predict"]))
 
 
 def check_alike(what, results, key):
@@ -4642,6 +4873,292 @@ def phase_serve_mesh_shared(dev, card, group, counts):
                                 "Knm (4, 12500, 256) and requests (4, 64, "
                                 "256), served config 6")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the examples (examples/torch_*.py) at their default sizes
+# ---------------------------------------------------------------------------
+
+EXAMPLE_REFERENCE = ROOT / "examples" / "torch_reference_metrics.json"
+# the multichip demo's differences from one device on the same rank: the
+# sharded loss (relative), its gradient (of each leaf's largest entry), the
+# sharded Adam fit's loss against one device's Adam (relative) and each
+# mesh's predictions at the fitted parameters (of the largest)
+MULTICHIP_BOUNDS = dict(sharded_loss_rel=1e-9, sharded_grad_rel=1e-7,
+                        adam_loss_rel=1e-6, n_predict_rel=1e-7,
+                        fitc_predict_rel=1e-7, nc_predict_rel=1e-7)
+
+
+def example_module(name):
+    """examples/torch_<name>.py as a module (its main(argv) -> dict)."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_to_reference(what, got, ref, tols):
+    """The metrics ``ref`` and ``tols`` both name, each within its
+    tolerance of the reference's."""
+    for k, tol in tols.items():
+        if k not in ref:
+            continue
+        say(f"  {what} {k}: {got[k]:.6g} vs the reference's {ref[k]:.6g} "
+            f"(tolerance {tol})")
+        check(abs(got[k] - ref[k]) <= tol, f"{what}: {k} {got[k]:.6g} beyond "
+              f"{tol} of the reference's {ref[k]:.6g}")
+
+
+# the kernel rows of phase 15: K1 and K2 at the examples' shapes, timed at
+# the borehole field's (5, 800, 800) with d=8, f64
+EXAMPLE_ROWS = ("matern32_gram_examples", "matern32_gram_vjp_examples")
+
+
+@contextlib.contextmanager
+def fitted_models():
+    """Yields the list of the models whose fit() returns inside the block,
+    in order (LCGP.fit wrapped on the class, restored after)."""
+    from lcgp_tpu_torch.models.lcgp import LCGP
+    models = []
+    fit = LCGP.fit
+
+    def wrapped(self, *args, **kwargs):
+        out = fit(self, *args, **kwargs)
+        models.append(self)
+        return out
+    LCGP.fit = wrapped
+    try:
+        yield models
+    finally:
+        LCGP.fit = fit
+
+
+def vjp_at_random(what, xs, ls, amp, nug, x2=None, seed=0):
+    """K2 at a random cotangent of the shape (same-point, or cross against
+    x2) against its plain version, f64; same-point components where the
+    two differ are recomputed in extended precision.  Returns the max abs
+    error."""
+    import torch
+    fam = family_of("matern32")
+    same = x2 is None
+    x2 = xs if same else x2
+    gen = torch.Generator(device=xs.device).manual_seed(seed)
+    cbar = torch.randn((ls.shape[0], xs.shape[0], x2.shape[0]),
+                       generator=gen, dtype=xs.dtype, device=xs.device)
+    got = fam.launch_vjp(xs, x2, ls, amp, nug, same=same, M=cbar)
+    ref = fam.vjp_plain(xs, x2, ls, amp, nug, same=same, cbar=cbar)
+    scale = fam.scale(xs, x2, ls, amp, nug, same=same, cbar=cbar)
+    torch.cuda.synchronize()
+    extended = None if not same else (
+        lambda k: vjp_extended(xs, ls, amp, nug, k, cbar, None, 0.0, None))
+    return compare_vjp(f"K2 at a random cotangent, {what}", got, ref,
+                       scale, extended)
+
+
+def phase_example_kernels(dev, card, fitted):
+    """Phase 15, part 2: K1 and K2 against their plain versions, f64, at
+    the examples' shapes: each one-card example's fitted model (K1 square
+    at its fitted parameters, K2 at a random cotangent; the borehole
+    field's K2 also fused at its loss's B^-1 and w, as its fit launches
+    it), each where the plain version is imprecise held to extended
+    precision; the multichip demo's (4, 256, 256) and its FITC blocks'
+    (4, 64, 32), d=4, at moderate parameters.  K1 (square, the loss's
+    epilogue) and K2 (fused) timed at the borehole field's (5, 800, 800)
+    with d=8, with their bounds.  ``fitted``: [(label, model)], the
+    borehole field's model last.  Returns the two records."""
+    import torch
+    from lcgp_tpu_torch.models import params as P
+    from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops._build import build
+    from lcgp_tpu_torch.ops.matern import (fused_cotangent,
+                                           matern32_gram_vjp_fused_plain,
+                                           matern32_gram_vjp_scale)
+    fam = family_of("matern32")
+    errs = ([], [])
+    for label, m in fitted:
+        xs = m._data.xs.contiguous()
+        ls, amp, _, nug = (t.detach().contiguous()
+                           for t in P.constrain(m.free))
+        what = (f"{label}'s fitted model (q={ls.shape[0]}, n={xs.shape[0]}, "
+                f"d={xs.shape[1]})")
+        errs[0].append(gram_at_fitted(xs, ls, amp, nug, "matern32", what))
+        errs[1].append(vjp_at_random(what, xs, ls, amp, nug))
+    rng = np.random.default_rng(71)
+    x = torch.as_tensor(rng.uniform(0, 1, (256, 4)), device=dev)
+    z = torch.as_tensor(rng.uniform(0, 1, (32, 4)), device=dev)
+    ls, amp, nug = moderate_params(rng, 4, 4, dev, torch.float64)
+    for x1, x2, same in ((x, x, True), (x[:64].contiguous(), z, False)):
+        what = (f"the multichip demo's shape (q=4, n1={x1.shape[0]}, "
+                f"n2={x2.shape[0]}, d=4)")
+        errs[0].append(compare(
+            f"K1 at {what} vs plain f64",
+            fam.launch(x1, x2, ls, amp, nug, same=same)[0],
+            fam.plain(x1, x2, ls, amp, nug, same=same), F64_RTOL, F64_ATOL))
+        errs[1].append(vjp_at_random(what, x1, ls, amp, nug,
+                                     x2=None if same else x2))
+
+    # the borehole field's fit: K1 with the loss's epilogue, K2 fused
+    label, m = fitted[-1]
+    xs = m._data.xs.contiguous()
+    ls, amp, nug, D, a = (t.detach().contiguous()
+                          for t in loss_operands(m, m.free))
+    q, n, d = ls.shape[0], xs.shape[0], xs.shape[1]
+    Binv, w = fused_operands(m, ls, amp, nug, D, a)
+    alpha = 0.5 * D
+
+    def p_fused():
+        return matern32_gram_vjp_fused_plain(xs, ls, amp, nug, M=Binv,
+                                             alpha=alpha, beta=-0.5, w=w)
+    got = fam.launch_vjp(xs, xs, ls, amp, nug, same=True, M=Binv,
+                         alpha=alpha, beta=-0.5, w=w)
+    scale = matern32_gram_vjp_scale(xs, xs, ls, amp, nug, same=True,
+                                    cbar=fused_cotangent(Binv, alpha, -0.5,
+                                                         w))
+    torch.cuda.synchronize()
+    lab = f"{label}'s fitted model (q={q}, n={n}, d={d})"
+    errs[1].append(compare_vjp(
+        f"K2 fused f64 at the loss's B^-1 and w, {lab}", got, p_fused(),
+        scale, lambda k: vjp_extended(xs, ls, amp, nug, k, Binv, alpha,
+                                      -0.5, w)))
+    lib = build().lib
+    dv = torch.full((q, n), 1.0 + m._jitter, dtype=xs.dtype, device=dev)
+    stack = q * n * n * 8
+    t_g = time_pair(f"K1 square+epilogue f64, {lab}",
+                    raw_gram(lib, xs, xs, ls, amp, nug, True, D, dv),
+                    lambda: linalg.add_diag(D[:, None, None] * fam.plain(
+                        xs, xs, ls, amp, nug, same=True), dv), stack)
+    b_g = say_bound("K1 examples", t_g[0],
+                    stack + (xs.numel() + ls.numel() + 3 * q + dv.numel())
+                    * 8, q * entries(n, n, True) * k1_ops_per_entry(d, True))
+    t_v = time_pair(f"K2 fused f64, {lab}",
+                    raw_vjp(lib, xs, ls, amp, nug, Binv, alpha, -0.5, w),
+                    p_fused, Binv.numel() * 8, "read")
+    b_v = say_bound("K2 examples", t_v[0],
+                    (Binv.numel() + w.numel() + xs.numel() + 5 * q
+                     + ls.numel() + q * (d + 2)) * 8,
+                    q * entries(n, n, True) * k2_ops_per_entry(d))
+    say(f"  [{card}] at {lab}: K1 {t_g[0]:.4f} ms (plain {t_g[1]:.4f}, "
+        f"bound {b_g[0]:.4f}), K2 {t_v[0]:.4f} ms (plain {t_v[1]:.4f}, "
+        f"bound {b_v[0]:.4f})")
+    shape = (f"timed at the borehole field's fitted model, BASELINE config "
+             f"3, q={q} n={n} d={d}, f64; checked at every one-card "
+             "example's fitted model and the multichip demo's shapes")
+    return [dict(name=name, route="cuda", source=src, replaces=rep,
+                 max_abs_err=max(e), ms=t[0], plain_ms=t[1], bound_ms=b[0],
+                 bound_by=b[1], library_ms=None, shape=f"{kind}, {shape}")
+            for name, src, rep, e, t, b, kind in zip(
+                EXAMPLE_ROWS, (K1_SOURCE, K2_SOURCE),
+                (K1_REPLACES, K2_REPLACES), errs, (t_g, t_v), (b_g, b_v),
+                ("square+epilogue", "fused loss cotangent"))]
+
+
+def phase_examples(dev, card):
+    """Phase 15: each example's main() on the card at its default size,
+    with the K1 and K2 launches it makes (counted apart for each example):
+    the notebook check within TOLERANCES of examples/notebook_metrics.json,
+    the three rep-1d and the three rep-3d cases (the transform check within
+    1e-10) and the borehole field at config 3 ('scipy', 'high'), each
+    within TOLERANCES of examples/torch_reference_metrics.json, then the
+    multichip demo on four gloo ranks that share the card (compute mode
+    Default), its differences from one device within MULTICHIP_BOUNDS and
+    K1 and K2 launched on the ranks.  Then K1 and K2 against their plain
+    versions at the examples' shapes (``phase_example_kernels``).  Returns
+    the two kernel records of the examples' shapes, with the phase's
+    launches (f64 and f32 alike) and each example's summary."""
+    import torch
+    ref = json.loads(EXAMPLE_REFERENCE.read_text())
+    tols = ref["tolerances"]
+    fam = family_of("matern32")
+    out = {}
+    total = [0, 0]
+    fitted = []
+
+    def run(name, argv=()):
+        before = (fam.gram.launches, fam.vjp.launches)
+        t0 = time.perf_counter()
+        with fitted_models() as models:
+            res = example_module(name).main(list(argv))
+        torch.cuda.synchronize()
+        fitted.extend((f"{name} fit {i}", m) for i, m in enumerate(models))
+        secs = time.perf_counter() - t0
+        launches = (fam.gram.launches - before[0],
+                    fam.vjp.launches - before[1])
+        total[0] += launches[0]
+        total[1] += launches[1]
+        say(f"  [{card}] {name}: {secs:.2f} s in all; (K1, K2) launches "
+            f"{launches}")
+        check(min(launches) > 0, f"{name} did not launch K1 and K2")
+        return res, secs, launches
+
+    res, secs, launches = run("check_notebook_fresh")
+    check(res["failures"] == [], f"the notebook metrics drifted: "
+          f"{res['failures']}")
+    out["check_notebook_fresh"] = dict(fit_s=res["fit_s"], s=secs,
+                                       launches=launches)
+    for name, key in (("rep_1d_illustration", "rep_1d"),
+                      ("rep_3d_illustration", "rep_3d")):
+        res, secs, launches = run(name)
+        for case, got in res.items():
+            hold_to_reference(f"{key} {case}", got, ref[key][case], tols)
+            if key == "rep_3d":
+                say(f"  rep_3d {case} transform check "
+                    f"{got['transform_check_max_abs']:.3e} (bound 1e-10)")
+                check(got["transform_check_max_abs"] <= 1e-10,
+                      f"rep_3d {case}: the transform check fails")
+        out[name] = dict(fit_s={c: r["fit_s"] for c, r in res.items()},
+                         s=secs, launches=launches)
+    res, secs, launches = run("borehole_field")
+    hold_to_reference("borehole config 3", res, ref["borehole_config3"],
+                      tols)
+    out["borehole_field"] = dict(fit_s=res["fit_s"], s=secs,
+                                 launches=launches, rmse=res["rmse"])
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    check(mode == "Default", "four contexts on one card need compute mode "
+          f"Default, not {mode}")
+    t0 = time.perf_counter()
+    res = example_module("multichip_sharded").main([])
+    secs = time.perf_counter() - t0
+    for k, bound in MULTICHIP_BOUNDS.items():
+        say(f"  multichip {k}: {res[k]:.3e} (bound {bound:g})")
+        check(res[k] <= bound, f"multichip demo: {k} {res[k]:.3e} beyond "
+              f"{bound:g}")
+    want = ref["multichip_2x2"]["single_device_loss"]
+    say(f"  multichip one device's loss {res['single_loss']:.6f} vs the "
+        f"reference's {want:.6f}")
+    check(abs(res["single_loss"] - want) <= 1e-6 * abs(want),
+          "the multichip demo's loss differs from the reference's")
+    # each rank's (Gram, VJP, K5) launches, f64 then f32
+    ranks = [(c[0] + c[1], c[2] + c[3]) for c in res["launches_ranks"]]
+    say(f"  [{card}] multichip_sharded: {secs:.2f} s on 4 gloo ranks; "
+        f"(K1, K2) launches of each rank {ranks}")
+    check(all(min(c) > 0 for c in ranks), "a rank of the multichip demo "
+          "did not launch K1 and K2")
+    total[0] += sum(c[0] for c in ranks)
+    total[1] += sum(c[1] for c in ranks)
+    out["multichip_sharded"] = dict(
+        s=secs, launches_ranks=ranks,
+        **{k: res[k] for k in MULTICHIP_BOUNDS},
+        **{k: res[k] for k in ("adam_s", "n_s", "fitc_s", "nc_s")})
+    del res
+    torch.cuda.empty_cache()
+    check(fitted and fitted[-1][0].startswith("borehole_field"),
+          "the borehole field's fitted model was not caught")
+    records = phase_example_kernels(dev, card, fitted)
+    for rec, n, what in zip(records, total, ("K1", "K2")):
+        rec["launches"] = n
+        rec["launches_by_example"] = {k: v["launches"][what == "K2"]
+                                      for k, v in out.items()
+                                      if "launches" in v}
+        rec["launches_by_example"]["multichip_sharded"] = sum(
+            c[what == "K2"] for c in out["multichip_sharded"]["launches_ranks"])
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    records[0]["examples"] = out
+    return records
 
 
 def other_library(root):
@@ -5099,7 +5616,7 @@ def main() -> int:
         "configs 6-8 (n=50,000, 400,000 and 2,000,000, d=2, p=20, q=4, "
         "m=256 and 512): K1, K2, K4 and K5 against their plain versions "
         "at config 6's shapes, then the main path")
-    fitc_records, m6 = phase_fitc(dev, registers)
+    fitc_records, m6 = phase_fitc(dev, card, registers)
     records += fitc_records
 
     say("[12] the prediction server (lcgp_tpu_torch/serve.py) on captured "
@@ -5197,6 +5714,14 @@ def main() -> int:
     block14[0]["fitc_mesh"] = shared
     records += block14
     say(f"[14] done in {time.perf_counter() - t14:.1f} s")
+
+    say("[15] the examples (examples/torch_*.py) at their default sizes: "
+        "the notebook check, rep-1d, rep-3d, the borehole field at config "
+        "3 and the multichip demo on four gloo ranks sharing the card")
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    records += phase_examples(dev, card)
+    say(f"[15] done in {time.perf_counter() - t15:.1f} s")
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ at the cotangent autograd hands it, and K5 for ``z``.
 
 Precision, as in the reference: Kmm, Lmm, M and LM are f64; Knm, W and the
 n-sized work are in the compute dtype; the n-length reductions accumulate
-in f64.
+in f64, G = W^T Lam~^{-1} W over blocks of G_BLOCK rows (:func:`_wtw`).
 """
 from __future__ import annotations
 
@@ -82,6 +82,72 @@ def _einsum_qnm_qm(W, s):
     return torch.einsum('qnm,qm->qn', W, s)
 
 
+# G = W^T Lam~^{-1} W is the one n-length reduction of the Woodbury core
+# whose rounding M = I + G amplifies.  A single f32 GEMM adds each entry's n
+# terms into one accumulator, as cuBLAS does at this shape: at config 7
+# (n = 400,000) its G was 3.0e-5 (of the largest entry) off the f64 product
+# of the same inputs on an H100, where the CPU's BLAS was 1.7e-7 off, and
+# the 'fast' loss 17% off f64.  So an f32 G is summed over blocks of
+# G_BLOCK rows, one GEMM a block, and the blocks' partials are added in f64
+# (tools/fitc_bisect.py on an H100: 1024 rows 6.3e-9 and the loss 1.3e-4
+# off, in 20.1 ms against the one GEMM's 20.7); an f64 G stays one GEMM.
+G_BLOCK = 1024
+# the partial products materialized at a time (entries): the blocked sum's
+# extra memory stays ~128 MB whatever n
+_G_GROUP_ENTRIES = 1 << 25
+
+
+def _blocked_wtw(A, W, block):
+    """sum_b A[:, :, b] @ W[:, b, :] in f64 over row blocks b of ``block``
+    rows, each block's product in A's dtype; A (q, m, n), W (q, n, k).
+    One component at a time, so that the blocks of A and W are strided
+    views of the operands, not copies."""
+    q, m, n = A.shape
+    k = W.shape[-1]
+    full = n - n % block
+    rows = max(1, _G_GROUP_ENTRIES // (m * k)) * block
+    G = torch.zeros((q, m, k), dtype=_F64, device=A.device)
+    for c in range(q):
+        for s in range(0, full, rows):
+            e = min(s + rows, full)
+            a = A[c, :, s:e].unflatten(-1, (-1, block)).transpose(0, 1)
+            w = W[c, s:e, :].unflatten(0, (-1, block))
+            G[c] += torch.sum(a @ w, dim=0, dtype=_F64)
+    if full < n:
+        G += (A[..., full:] @ W[..., full:, :]).to(_F64)
+    return G
+
+
+class _BlockedWtW(torch.autograd.Function):
+    """:func:`_blocked_wtw` with the gradient of the plain product
+    ``(A @ W).to(f64)``: the cotangent in A's dtype times the other
+    operand, two GEMMs with m-length sums.  (Autograd through the blocks'
+    slices would build a gradient of A's and W's full size for each
+    block.)"""
+
+    @staticmethod
+    def forward(ctx, A, W, block):
+        ctx.save_for_backward(A, W)
+        return _blocked_wtw(A, W, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        A, W = ctx.saved_tensors
+        g = g.to(A.dtype)
+        gA = g @ W.mT if ctx.needs_input_grad[0] else None
+        gW = A.mT @ g if ctx.needs_input_grad[1] else None
+        return gA, gW, None
+
+
+def _wtw(A, W):
+    """G = A @ W (q, m, k) in f64, A = W^T Lam~^{-1} (q, m, n): one GEMM
+    in f64; in f32 a GEMM a block of :data:`G_BLOCK` rows, the partials
+    added in f64."""
+    if A.dtype == _F64:
+        return A @ W
+    return _BlockedWtW.apply(A, W, G_BLOCK)
+
+
 def _lmm64(z, lLmb, lLmb0, lnug, kernel):
     """chol(Kmm + KMM_JITTER amp I) in f64, Kmm = C(z, z) with no nugget
     diagonal (``same=False``)."""
@@ -128,7 +194,7 @@ def _fitc_core(xs, z, lLmb, lLmb0, lnug, lam, *, compute_dtype, kernel):
     W, lam_t = _panel(xs, z, Lmm, lLmb, lLmb0, lnug, lam,
                       compute_dtype=compute_dtype, kernel=kernel)
     WtLi = W.mT / lam_t[:, None, :]                            # (q, m, n)
-    M64 = linalg.add_diag((WtLi @ W).to(_F64), 1.0)
+    M64 = linalg.add_diag(_wtw(WtLi, W), 1.0)
     LM = linalg.cholesky(M64)                                  # (q, m, m) f64
     return FitcCore(Lmm=Lmm, W=W, lam_t=lam_t, LM=LM)
 
@@ -210,7 +276,7 @@ def _stream_block(xs_b, z, Lmm, lLmb, lLmb0, lnug, lam_b, b_b, w_b, *,
     b_dt = b_b.to(dt)
     vi = lam_dt * b_dt / lam_t                                 # (q, nc)
     wq = w_b.to(dt)[None, :]
-    G = ((W.mT * (wq / lam_t)[:, None, :]) @ W).to(_F64)
+    G = _wtw(W.mT * (wq / lam_t)[:, None, :], W)
     t = _einsum_qnm_qn(W, wq * vi).to(_F64)
     sumlog = torch.sum(w_b * torch.log(lam_t.to(_F64)), dim=-1)
     bb = torch.sum((wq * lam_dt * b_dt * b_dt).to(_F64), dim=-1)
@@ -383,7 +449,7 @@ def compute_aux_fitc(free: P.FreeParams, data, z, mode: str,
     # G = W^T Lam~^{-1} W = M - I; the variance reduction kernel is
     # G - G M^{-1} G = G M^{-1} (M = I + G commutes with G), symmetric PSD
     Minv = linalg.chol_inverse(core.LM)                        # f64
-    G = ((core.W.mT / core.lam_t[:, None, :]) @ core.W).to(core.LM.dtype)
+    G = _wtw(core.W.mT / core.lam_t[:, None, :], core.W)
     inner = G @ Minv
     inner = 0.5 * (inner + inner.mT)
     return FitcAux(Lmm=core.Lmm, alpha=alpha, inner=inner, u=u)

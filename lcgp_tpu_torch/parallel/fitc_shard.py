@@ -73,7 +73,7 @@ def _woodbury_block(xblk, mblk, lam, b, z, lLmb, lLmb0, lnug, *, mesh,
     lam = lam.to(dt)
 
     WtLi = W.mT / lam_t[:, None, :] * mb[:, None, :]           # (q, m, nb)
-    G = mesh.all_reduce((WtLi @ W).to(_F64), AXIS, grad=True)  # (q, m, m)
+    G = mesh.all_reduce(sparse._wtw(WtLi, W), AXIS, grad=True)  # (q, m, m)
     LM = linalg.cholesky(linalg.add_diag(G, 1.0))              # f64
 
     # u = (C_hat + Lam)^{-1} (Lam b): sparse._fitc_solve, two sums

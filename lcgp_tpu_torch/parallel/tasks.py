@@ -595,3 +595,117 @@ def serve_mesh(spec, x, y, ctor, free, x0, *, device='cpu', batch_size=16,
         out['ref_load'] = [host(t) for t in m3.predict(x0)]
     out['launches'] = _since(start, m.kernel)
     return out
+
+
+# ---------------------------------------------------------------------------
+# examples/torch_multichip_sharded.py: the demo every rank runs
+# ---------------------------------------------------------------------------
+
+def _rel_max(a, b):
+    """max |a - b| over the largest |b|, for tensors or sequences of them."""
+    if isinstance(a, torch.Tensor):
+        a, b = [a], [b]
+    num = max(float((u.detach().double() - v.detach().double()).abs().max())
+              for u, v in zip(a, b))
+    top = max(float(v.detach().double().abs().max()) for v in b)
+    return num / max(top, 1e-300)
+
+
+def multichip_demo(n_comp, n_out, steps, *, device='cpu'):
+    """``examples/torch_multichip_sharded.py`` on this rank of the world
+    (every rank calls it): each mesh mode against one device on the same
+    rank.
+
+    1. the ('comp','out') mesh (n_comp, n_out): the sharded loss and
+       gradient at the init, then ``fit_sharded`` (Adam, ``steps``), each
+       against one device's (``fit/adam.py`` on the model's loss);
+    2. the ('n',) mesh of the world: ``fit(mesh=..., method='adam')`` on the
+       exact path, then ``predict`` against one device's at the fitted
+       parameters;
+    3. n-sharded FITC (``inducing=32``) on that mesh, the same way;
+    4. with 4 or more ranks (an even count), the ('comp','n') mesh
+       (2, ranks/2), the same way.
+
+    Returns {'lines': the demo's printed lines, each mode's relative
+    differences and seconds, 'launches': this rank's (Gram, VJP, K5)
+    launches of the run, f64 then f32, 'launches_ranks': every rank's}."""
+    import torch.distributed as dist
+    from ..fit.adam import minimize_adam
+    from ..models.lcgp import LCGP
+    start = _fitc_launches('matern32')
+    lines, out = [], {}
+    world = dist.get_world_size()
+    lines.append(f'ranks: {world} on {device}')
+    mesh = mesh_mod.make_mesh(n_comp=n_comp, n_out=n_out, device=device)
+    lines.append(f'mesh: {mesh}')
+
+    rng = np.random.default_rng(0)
+    q = n_comp * 2
+    p = max(n_out * 8, q)
+    x = rng.uniform(0, 1, (256, 4))
+    y = (np.sin(2 * np.pi * np.linspace(0, 1, p))[:, None] * x[:, 0][None, :]
+         + 0.1 * rng.standard_normal((p, 256)))
+
+    model = LCGP(y=y, x=x, q=q, device=device)
+    leaves = Pm.FreeParams(*(t.detach().clone().requires_grad_(True)
+                             for t in model.free))
+    v1 = model._loss_fn()(leaves)
+    g1 = torch.autograd.grad(v1, leaves)
+    single = float(v1.detach())
+    v, g = mesh_mod.make_sharded_value_and_grad(mesh, model._data)(
+        model.free, model._data)
+    out['sharded_loss'], out['single_loss'] = float(v), single
+    out['sharded_loss_rel'] = abs(float(v) - single) / abs(single)
+    out['sharded_grad_rel'] = max(_rel_max(a, b) for a, b in zip(g, g1))
+    lines.append(f'sharded loss {float(v):.6f} vs single-device '
+                 f'{single:.6f}; gradient max diff '
+                 f'{out["sharded_grad_rel"]:.2e} of a leaf\'s largest')
+
+    t0 = time.time()
+    _, fit_res = mesh_mod.fit_sharded(model._data, model.free, mesh,
+                                      steps=steps, learning_rate=3e-2)
+    out['adam_s'] = time.time() - t0
+    one = minimize_adam(model._loss_fn(), model.free, steps=steps,
+                        learning_rate=3e-2)
+    out['adam_loss_rel'] = abs(float(fit_res.fun) - float(one.fun)) / abs(
+        float(one.fun))
+    lines.append(f'{steps} sharded Adam steps in {out["adam_s"]:.2f}s; loss '
+                 f'{single:.4f} -> {float(fit_res.fun):.4f} (stop: '
+                 f'{fit_res.stop_reason}); single-device Adam '
+                 f'{float(one.fun):.4f}')
+
+    def predict_parity(mesh, **ctor):
+        m = LCGP(y=y, x=x, q=q, device=device, **ctor)
+        t0 = time.time()
+        m.fit(mesh=mesh, method='adam', steps=steps, learning_rate=3e-2)
+        x0 = np.random.default_rng(1).uniform(0, 1, (8, 4))
+        got = m.predict(x0)[0]
+        secs = time.time() - t0
+        ref = LCGP(y=y, x=x, q=q, device=device, **ctor)
+        ref.free = m.free
+        if m._z is not None:
+            ref._z = m._z.clone()
+        return _rel_max(got, ref.predict(x0)[0]), secs
+
+    nmesh = nshard.make_n_mesh(device=device)
+    out['n_predict_rel'], out['n_s'] = predict_parity(nmesh)
+    lines.append(f'n-sharded fit+predict over {world} ranks in '
+                 f'{out["n_s"]:.2f}s; predict vs single-device max diff '
+                 f'{out["n_predict_rel"]:.2e} of the largest')
+    out['fitc_predict_rel'], out['fitc_s'] = predict_parity(
+        nmesh, inducing=32)
+    lines.append(f'n-sharded FITC (m=32) fit+predict in '
+                 f'{out["fitc_s"]:.2f}s; predict vs single-device max diff '
+                 f'{out["fitc_predict_rel"]:.2e} of the largest')
+    if world >= 4 and world % 2 == 0:
+        ncmesh = nshard.make_nc_mesh(2, world // 2, device=device)
+        out['nc_predict_rel'], out['nc_s'] = predict_parity(ncmesh)
+        lines.append(f"('comp','n') {{'comp': 2, 'n': {world // 2}}} "
+                     f"fit+predict in {out['nc_s']:.2f}s; predict vs "
+                     f"single-device max diff {out['nc_predict_rel']:.2e} "
+                     "of the largest")
+    out['launches'] = _since(start, 'matern32')
+    out['launches_ranks'] = [None] * world
+    dist.all_gather_object(out['launches_ranks'], out['launches'])
+    out['lines'] = lines
+    return out

@@ -1737,3 +1737,29 @@ def test_served_mesh_model_on_the_card(dev, fitc):
         for a, b in zip(got, ref):
             np.testing.assert_allclose(a, b, rtol=0,
                                        atol=1e-10 * np.abs(b).max())
+
+
+def test_fast_fitc_at_config7s_field_within_the_references_error(dev):
+    """One device's 'fast' FITC on the first 100,000 rows of config 7's
+    field (config 7's inducing points; the smallest of 100k, 200k and 400k
+    rows at which the card's single f32 GEMM for G = W^T Lam~^-1 W showed:
+    loss 4.8e-3 off f64) against the card's own f64 at the init: the loss,
+    each gradient leaf and the 64-point predictions within
+    ``chip_smoke.fitc7_fast_bounds(100_000)``: 4x the reference's own
+    'fast' error at these 100,000 rows, capped at FITC7_FAST_BOUNDS."""
+    import chip_smoke as cs
+    x, y, x0, z = cs.fitc7_inputs()
+    n = 100_000
+    res = {}
+    for precision in ('fast', 'high'):
+        m = cs.fitc7_model(dev, x[:n], y[:, :n], z, precision=precision)
+        v, g, flat = cs.fitc_loss_grad(m, with_z=False)
+        res[precision] = (float(v), g, cs.model_outs(m, x0))
+        del m
+        torch.cuda.empty_cache()
+    bounds = cs.fitc7_fast_bounds(n)
+    errs = cs.fast_vs_f64_check("config 7's field, n=100,000",
+                                res['fast'], res['high'], flat,
+                                bounds=bounds)
+    for k, bound in bounds.items():
+        assert errs[k] <= bound, (k, errs[k], bound)

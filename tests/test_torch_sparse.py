@@ -433,3 +433,73 @@ def test_shell_members_match_jax():
     jm.init_params()
     for a, b in zip(tm._free, jm._free):
         _close(a, b, rtol=1e-14)
+
+
+# ---------------------------------------------------------------------------
+# 'fast' (f32 panel) FITC on config 7's field, against f64 and lcgp_tpu
+# ---------------------------------------------------------------------------
+
+_LEAVES = ('lLmb', 'lLmb0', 'lsigma2s', 'lnugGPs')
+
+
+def _jax_fitc7(x, y, x0, z, precision):
+    """lcgp_tpu's un-chunked FITC model at its init on (x, y) with
+    inducing points z ((m, d) in x's units): (loss, {leaf: gradient},
+    (ypred, ypredvar, yconfvar))."""
+    jm = lcgp_tpu.LCGP(y, x, q=4, inducing=z, n_chunk=0,
+                       precision=precision)
+    fn = lambda f: JS.neglpost_full_fitc(           # noqa: E731
+        f, jm._data, jm._z, compute_dtype=jm._compute_dtype,
+        kernel=jm.kernel, n_chunk=None)
+    v, g = jax.value_and_grad(fn)(jm._free)
+    grads = {nm: np.asarray(a, dtype=np.float64) for nm, a in zip(_LEAVES, g)}
+    pred = [np.asarray(a, dtype=np.float64) for a in jm.predict(x0)]
+    return float(v), grads, pred
+
+
+def _port_fitc7(x, y, x0, z, precision):
+    """The same through lcgp_tpu_torch on the CPU."""
+    tm = lcgp_tpu_torch.LCGP(y, x, q=4, inducing=z, n_chunk=0,
+                             precision=precision, device='cpu')
+    fl = Flattener(tm.free)
+    flat = fl.ravel(tm.free).clone().requires_grad_(True)
+    v = tm._loss_fn()(fl.unravel(flat))
+    (g,) = torch.autograd.grad(v, flat)
+    grads = {nm: _np(a).astype(np.float64)
+             for nm, a in zip(_LEAVES, fl.unravel(g))}
+    pred = [_np(a).astype(np.float64) for a in tm.predict(x0)]
+    return float(v.detach()), grads, pred
+
+
+def _errors(got, ref):
+    """(loss relative, {leaf: of its max |g|}, ypred, ypredvar and
+    yconfvar of the largest entry) of one (loss, grads, pred) against
+    another."""
+    (v, g, p), (vr, gr, pr) = got, ref
+    out = dict(loss=abs(v - vr) / abs(vr))
+    for nm in gr:
+        out[nm] = float(np.abs(g[nm] - gr[nm]).max() / np.abs(gr[nm]).max())
+    for nm, a, b in zip(('ypred', 'ypredvar', 'yconfvar'), p, pr):
+        out[nm] = float(np.abs(a - b).max() / np.abs(b).max())
+    return out
+
+
+def test_fast_fitc_on_config7_field():
+    """At the first 20,000 rows of config 7's field, with config 7's
+    inducing points and 64-point request (chip_smoke.fitc7_inputs): the
+    port's 'fast' FITC within chip_smoke.fitc7_fast_bounds(20_000) (4x
+    lcgp_tpu's own 'fast' error at these rows, capped at
+    FITC7_FAST_BOUNDS) of its own f64 and of lcgp_tpu's 'fast' (the loss,
+    each gradient leaf, the 64-point predictions)."""
+    from chip_smoke import fitc7_fast_bounds, fitc7_inputs
+    n = 20_000
+    x, y, x0, z = fitc7_inputs()
+    x, y = x[:n], y[:, :n]
+    jax32 = _jax_fitc7(x, y, x0, z, 'fast')
+    port64 = _port_fitc7(x, y, x0, z, 'high')
+    port32 = _port_fitc7(x, y, x0, z, 'fast')
+    bounds = fitc7_fast_bounds(n)
+    for what, ref in (('f64', port64), ("lcgp_tpu's 'fast'", jax32)):
+        err = _errors(port32, ref)
+        for k, bound in bounds.items():
+            assert err[k] <= bound, (what, k, err[k], bound)
