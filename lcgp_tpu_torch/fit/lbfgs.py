@@ -24,7 +24,9 @@ the host, one synchronisation per evaluation, where the search decides its
 next step as optax's ``while_loop`` does on the device.  Each evaluation
 is one loss and its gradient (``nfev`` counts them); the value and
 gradient at the accepted step are reused by the next iteration, as
-``optax.value_and_grad_from_state`` reuses them.
+``optax.value_and_grad_from_state`` reuses them.  Spans
+(``utils.profiling``): ``lcgp.fit`` the whole minimization,
+``lcgp.fit.eval`` each evaluation.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ._flat import Flattener
 from .adam import DeviceFitResult, PlateauTracker
 
@@ -69,11 +72,12 @@ class _Objective:
         self.nfev = 0
 
     def __call__(self, x: torch.Tensor):
-        leaf = x.detach().clone().requires_grad_(True)
-        v = self.loss_fn(self.flattener.unravel(leaf))
-        (g,) = torch.autograd.grad(v, leaf)
-        self.nfev += 1
-        return np.float64(v.item()), g
+        with span('lcgp.fit.eval'):
+            leaf = x.detach().clone().requires_grad_(True)
+            v = self.loss_fn(self.flattener.unravel(leaf))
+            (g,) = torch.autograd.grad(v, leaf)
+            self.nfev += 1
+            return np.float64(v.item()), g
 
 
 class _LBFGSMemory:
@@ -326,7 +330,7 @@ def minimize_lbfgs_jax(loss_fn: Callable, params0, *, maxiter: int = 500,
         raise ValueError(f"linesearch must be 'zoom' or 'backtracking', got "
                          f"{linesearch!r}")
     # optax's scalar arithmetic: 1/0 is inf and sqrt(-1) NaN, unannounced
-    with np.errstate(all='ignore'):
+    with np.errstate(all='ignore'), span('lcgp.fit'):
         flattener = Flattener(params0)
         x = flattener.ravel(params0).detach().clone()
         obj = _Objective(loss_fn, flattener)

@@ -6,7 +6,8 @@ scipy.optimize.minimize(method='L-BFGS-B') with default options.  Each
 evaluation builds a fresh leaf on the model's device from scipy's iterate,
 runs the loss and ``torch.autograd.grad``, and copies the value and the
 gradient to the host in one transfer: the one synchronisation per
-evaluation.
+evaluation.  Spans (``utils.profiling``): ``lcgp.fit`` the whole
+minimization, ``lcgp.fit.eval`` each evaluation.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import scipy.optimize
 import torch
 
+from ..utils.profiling import span
 from ._flat import Flattener
 
 
@@ -91,13 +93,14 @@ def minimize_lbfgs(loss_fn: Callable, params0, verbose: bool = False,
     def fun_and_jac(z):
         nonlocal neval
         neval += 1
-        v, g = vg(z)
-        if not np.isfinite(v):
-            # L-BFGS-B backtracks reliably on inf but can stall on NaN:
-            # map any non-finite objective to +inf and kill non-finite
-            # gradient entries so the line search can recover
-            v = np.inf
-            g = np.where(np.isfinite(g), g, 0.0)
+        with span('lcgp.fit.eval'):
+            v, g = vg(z)
+            if not np.isfinite(v):
+                # L-BFGS-B backtracks reliably on inf but can stall on NaN:
+                # map any non-finite objective to +inf and kill non-finite
+                # gradient entries so the line search can recover
+                v = np.inf
+                g = np.where(np.isfinite(g), g, 0.0)
         if verbose:
             print(f"[lcgp_tpu_torch.fit] eval {neval:4d}  loss {v:.8g}")
         last_val[0] = v
@@ -105,14 +108,15 @@ def minimize_lbfgs(loss_fn: Callable, params0, verbose: bool = False,
 
     use_cb = callback is not None or plateau_patience is not None
     try:
-        res = scipy.optimize.minimize(
-            fun_and_jac,
-            np.asarray(flat0, dtype=np.float64),
-            jac=True,
-            method="L-BFGS-B",
-            callback=scipy_cb if use_cb else None,
-            options=scipy_options or None,
-        )
+        with span('lcgp.fit'):
+            res = scipy.optimize.minimize(
+                fun_and_jac,
+                np.asarray(flat0, dtype=np.float64),
+                jac=True,
+                method="L-BFGS-B",
+                callback=scipy_cb if use_cb else None,
+                options=scipy_options or None,
+            )
     except StopIteration:
         # scipy < 1.11 does not turn a callback's StopIteration into a
         # graceful stop; recover the best-seen iterate

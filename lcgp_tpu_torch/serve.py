@@ -64,20 +64,57 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from .utils.profiling import record_compile
+from .utils.profiling import (finished, new_id, record_compile, recording,
+                              stamp)
 
 _F64 = torch.float64
 
 
 class _Chunk:
-    """One <=batch_size slice of a request, awaiting a microbatch slot."""
-    __slots__ = ('x0', 'event', 'result', 'error')
+    """One <=batch_size slice of a request, awaiting a microbatch slot.
+    While spans are recorded (``utils.profiling``), ``owner`` is its
+    request's (span id, sender thread), ``t_put`` when it entered the queue
+    and ``t_set`` when its result was handed over (``time.time_ns()``)."""
+    __slots__ = ('x0', 'event', 'result', 'error', 'owner', 't_put', 't_set')
 
     def __init__(self, x0):
         self.x0 = x0
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.owner = self.t_put = self.t_set = None
+
+
+def _request_spans(record):
+    """A request's stamps as spans: ``lcgp.serve.request`` (``predict``'s
+    entry to its return) and ``lcgp.serve.wake`` (its last chunk's result
+    handed over to the return)."""
+    (rid, tid), t0, t1, rows, t_set = record
+    yield finished('lcgp.serve.request', t0, t1, tid, request=rid,
+                   span_id=rid, rows=rows)
+    if t_set is not None:
+        yield finished('lcgp.serve.wake', t_set, t1, tid, parent=rid,
+                       request=rid)
+
+
+def _dispatch_spans(record):
+    """A dispatch's stamps as spans: ``lcgp.serve.dispatch`` (its group
+    taken to the last result handed over), its children ``.replay`` (copy
+    in and graph launch; none without a graph) and ``.wait`` (the device's
+    work and the copy out), and each chunk's ``lcgp.serve.queue_wait`` (its
+    entry into the queue to the dispatch's start) on its sender."""
+    t0, t1, tid, rows, (r0, r1, w1), chunks = record
+    d = finished('lcgp.serve.dispatch', t0, t1, tid, rows=rows,
+                 chunks=len(chunks))
+    yield d
+    if r0 is not None:
+        yield finished('lcgp.serve.replay', r0, r1, tid, parent=d.id)
+    yield finished('lcgp.serve.wait', r1, w1, tid, parent=d.id)
+    for owner, t_put in chunks:
+        if t_put is not None:
+            yield finished('lcgp.serve.queue_wait', t_put, t0, owner[1],
+                           parent=owner[0], request=owner[0],
+                           dispatch=d.id)
 
 
 class _Swap:
@@ -150,13 +187,17 @@ class _Fused:
     so the next replay may overwrite them.  A capture that fails raises: there is no
     eager fallback on CUDA.  On the CPU, and for a step with collectives
     (``graph=False``: a graph cannot hold them), the step runs eagerly.
-    ``calls`` counts the calls, one per dispatch."""
+    ``calls`` counts the calls, one per dispatch.  ``stamps``: None, or
+    while the dispatcher records spans a list that the next call extends
+    with ``time.time_ns()`` at the copy in (None with no graph), after the
+    graph's launch and after the outputs' copy to the host."""
 
     def __init__(self, step, state, batch_size: int, d: int, what: str,
                  graph: bool = True):
         self.step, self.state = step, state
         self.device = state['x_min'].device
         self.calls = 0
+        self.stamps = None
         self.graph = None
         if self.device.type == 'cuda' and graph:
             self._capture(batch_size, d, what)
@@ -198,17 +239,27 @@ class _Fused:
         """The outputs at the (batch_size, d) float64 batch x0 over the
         bound state, as NumPy arrays on the host."""
         self.calls += 1
+        stamps = self.stamps
         if self.graph is None:
-            return self.eager(x0)
-        with torch.cuda.stream(self.stream):
-            self.x0.copy_(torch.from_numpy(x0))
-            self.graph.replay()
-            flat = self.flat.cpu().numpy()    # waits for the replay
-        outs, ofs = [], 0
-        for shape in self.shapes:
-            size = int(np.prod(shape))
-            outs.append(flat[ofs:ofs + size].reshape(shape))
-            ofs += size
+            if stamps is not None:
+                stamps += (None, time.time_ns())
+            outs = self.eager(x0)
+        else:
+            with torch.cuda.stream(self.stream):
+                if stamps is not None:
+                    stamps.append(time.time_ns())
+                self.x0.copy_(torch.from_numpy(x0))
+                self.graph.replay()
+                if stamps is not None:
+                    stamps.append(time.time_ns())
+                flat = self.flat.cpu().numpy()    # waits for the replay
+            outs, ofs = [], 0
+            for shape in self.shapes:
+                size = int(np.prod(shape))
+                outs.append(flat[ofs:ofs + size].reshape(shape))
+                ofs += size
+        if stamps is not None:
+            stamps.append(time.time_ns())
         return outs
 
     def load_state(self, new):
@@ -269,6 +320,7 @@ class PredictServer:
         # this lock: no swap falls between two chunks of one request
         self._enqueue_lock = threading.Lock()
         self._closed = False
+        self._failed = None      # what killed the dispatcher, if it died
         self._queue: queue_mod.Queue = queue_mod.Queue()
         self._dispatcher = None
         if self._leader:
@@ -528,6 +580,8 @@ class PredictServer:
         ``inline`` is False: then it raises); re-raise its error."""
         swap = _Swap(apply)
         with self._enqueue_lock:
+            if self._failed is not None:
+                raise self._dead()
             if self._closed:
                 if not inline:
                     raise RuntimeError('the server is shut down')
@@ -572,18 +626,29 @@ class PredictServer:
         self._lead('predict')
         x0 = self._checked(x0)
         bs = self.batch_size
+        on = recording()
+        if on:
+            t0, owner = time.time_ns(), (new_id(), threading.get_native_id())
         chunks = [_Chunk(x0[s:s + bs]) for s in range(0, x0.shape[0], bs)]
         with self._enqueue_lock:
+            if self._failed is not None:
+                raise self._dead()
             if self._closed:
                 raise RuntimeError('the server is shut down')
             for c in chunks:
+                if on:
+                    c.owner, c.t_put = owner, time.time_ns()
                 self._queue.put(c)
         for c in chunks:
             c.event.wait()
             if c.error is not None:
                 raise c.error
-        return tuple(np.concatenate([c.result[i] for c in chunks], axis=1)
-                     for i in range(3))
+        out = tuple(np.concatenate([c.result[i] for c in chunks], axis=1)
+                    for i in range(3))
+        if on:
+            stamp(_request_spans, (owner, t0, time.time_ns(), x0.shape[0],
+                                   chunks[-1].t_set))
+        return out
 
     def predict_fullcov(self, x0):
         """Predict with the (n0, p, p) full predictive covariance.
@@ -738,9 +803,35 @@ class PredictServer:
                 traceback.print_exc()
 
     def _dispatch_loop(self):
-        """Dispatcher thread: sole owner of the predict graph.
+        """Dispatcher thread: sole owner of the predict graph (see
+        :meth:`_dispatch_forever`).  Should it die, every queued and later
+        request or reload fails with its error instead of waiting."""
+        try:
+            self._dispatch_forever()
+        except BaseException as e:
+            with self._enqueue_lock:
+                self._failed = e
+                while True:
+                    try:
+                        item = self._queue.get_nowait()
+                    except queue_mod.Empty:
+                        break
+                    if item is not None:
+                        item.error = self._dead()
+                        item.event.set()
+            raise
 
-        Blocks for one pending chunk, then greedily drains more pending
+    def _dead(self) -> RuntimeError:
+        """A new error for one call on a server whose dispatcher died,
+        caused by what killed it (a new one each time: a raised error keeps
+        every frame it passes through)."""
+        err = RuntimeError(
+            f"the server's dispatcher thread died: {self._failed!r}")
+        err.__cause__ = self._failed
+        return err
+
+    def _dispatch_forever(self):
+        """Blocks for one pending chunk, then greedily drains more pending
         chunks while their rows still fit the fixed batch shape —
         concurrent clients share a single padded dispatch.  A reload's swap
         runs here too, between two dispatches.  On a mesh it is the only
@@ -748,10 +839,12 @@ class PredictServer:
         command (a collective step's batch, a reload, the stop) before
         running it, and a heartbeat when idle.
         """
-        if self.device.type == 'cuda':
-            torch.cuda.set_device(self.device)
+        if self._fn.device.type == 'cuda':
+            # the state's device, always indexed (the model's may be 'cuda')
+            torch.cuda.set_device(self._fn.device)
         bs = self.batch_size
         idle = None if self._mesh is None else _HEARTBEAT_S
+        tid = threading.get_native_id()
         while True:
             try:
                 first = self._queue.get(timeout=idle)
@@ -783,6 +876,9 @@ class PredictServer:
                     break
                 group.append(self._queue.get_nowait())
                 rows += group[-1].x0.shape[0]
+            # while recording, the clock readings of the dispatch's spans
+            t0 = time.time_ns() if recording() else None
+            stamps = self._fn.stamps = None if t0 is None else []
             try:
                 batch = np.concatenate([c.x0 for c in group])
                 pad = bs - batch.shape[0]
@@ -797,11 +893,18 @@ class PredictServer:
                     k = c.x0.shape[0]
                     c.result = [o[:, ofs:ofs + k] for o in res]
                     ofs += k
+                    if stamps is not None:
+                        c.t_set = time.time_ns()
                     c.event.set()
             except Exception as e:   # noqa: BLE001 — fan the error out
                 for c in group:
                     c.error = e
                     c.event.set()
+            else:
+                if stamps is not None:
+                    stamp(_dispatch_spans, (
+                        t0, time.time_ns(), tid, rows, stamps,
+                        [(c.owner, c.t_put) for c in group]))
 
     def info(self):
         m = self.model

@@ -1551,6 +1551,86 @@ def test_served_state_survives_a_fit_on_the_model(dev):
         srv.shutdown()
 
 
+def test_served_model_built_on_an_unindexed_cuda_device(dev):
+    """A model built with device='cuda' (no index, LCGP's default) is
+    served: the dispatcher takes its device from the state tensors."""
+    import threading
+    from lcgp_tpu_torch.serve import PredictServer
+    m = _serve_model('cuda', 'full')
+    assert m.device.index is None
+    srv = PredictServer(m, batch_size=16, warmup=False)
+    try:
+        x0 = np.random.default_rng(6).uniform(0, 1, (21, 3))
+        out = {}
+        t = threading.Thread(target=lambda: out.update(r=srv.predict(x0)))
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive() and srv._dispatcher.is_alive()
+        _normwise(out['r'], [o.cpu().numpy() for o in m.predict(x0)], 1e-10)
+    finally:
+        srv.shutdown()
+
+
+def test_spans_on_the_cuda_profilers_clock(dev, tmp_path):
+    """Under torch.profiler with CUDA activity: every graph replay of the
+    server is one lcgp.serve.replay span, ending within 100 us of its
+    cudaGraphLaunch, and main-thread spans start and end within 100 us of
+    their record_function twins (medians over the replays and over 20
+    spans: a record_function call now and then takes ~100-300 us to enter
+    or leave, the first of a session always)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from lcgp_tpu_torch.serve import PredictServer
+    from lcgp_tpu_torch.utils import profiling
+    m = _serve_model(dev, 'full')
+    srv = PredictServer(m, batch_size=16, warmup=True)
+    eye = torch.eye(64, dtype=torch.float64, device=dev) * 2.0
+    try:
+        x0 = np.random.default_rng(7).uniform(0, 1, (40, 3))    # 3 chunks
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with profiling.span('lcgp.test.first'):
+                pass
+            for _ in range(20):
+                with profiling.span('lcgp.test.main'):
+                    torch.linalg.cholesky(eye)
+                    torch.cuda.synchronize()
+            for _ in range(20):
+                srv.predict(x0)
+            torch.cuda.synchronize()
+        path = tmp_path / 'trace.json'
+        prof.export_chrome_trace(str(path))
+    finally:
+        srv.shutdown()
+    spans = profiling.spans()
+    chrome = json.loads(path.read_text())
+    base = int(chrome.get('baseTimeNanoseconds', 0))
+    events = [e for e in chrome['traceEvents'] if e.get('ph') == 'X']
+    launches = sorted(e['ts'] + e['dur'] for e in events
+                      if e['name'] == 'cudaGraphLaunch')
+    replays = sorted((s.end - base) / 1e3 for s in spans
+                     if s.name == 'lcgp.serve.replay')
+    assert len(replays) == len(launches) == 60
+    assert len([s for s in spans if s.name == 'lcgp.serve.dispatch']) == 60
+    gaps = [b - a for a, b in zip(replays, launches)]
+    print('replay end - graph launch end (us): median', np.median(gaps),
+          'range', min(gaps), max(gaps))
+    assert abs(np.median(gaps)) < 100.0
+    mains = sorted((s for s in spans if s.name == 'lcgp.test.main'),
+                   key=lambda s: s.start)
+    twins = sorted((e for e in events if e['name'] == 'lcgp.test.main'
+                    and e.get('cat') == 'user_annotation'),
+                   key=lambda e: e['ts'])
+    assert len(mains) == len(twins) == 20
+    starts = [(s.start - base) / 1e3 - e['ts'] for s, e in zip(mains, twins)]
+    ends = [(s.end - base) / 1e3 - e['ts'] - e['dur']
+            for s, e in zip(mains, twins)]
+    print('main span - twin (us): start median', np.median(starts), 'range',
+          min(starts), max(starts), '; end median', np.median(ends),
+          'range', min(ends), max(ends))
+    assert abs(np.median(starts)) < 100.0 and abs(np.median(ends)) < 100.0
+
+
 # ---------------------------------------------------------------------------
 # The mesh paths (lcgp_tpu_torch/parallel) on the card
 # ---------------------------------------------------------------------------
