@@ -1354,21 +1354,64 @@ def plain_kernels():
         lik.gram_factor_target, lik.gram_vjp_fused = saved
 
 
+# the f64 peak of an H100 SXM at 700 W (tensor cores), FLOP/s
+F64_PEAK = 67e12
+
+
+def dense_chol_inverse(L):
+    """The plain yardstick of B^{-1}: a triangular solve against I, then
+    L^{-T} L^{-1} as one dense matmul, 3n^3 flops (``chol_inverse``'s form
+    below two blocks)."""
+    import torch
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    inv = linv.mT @ linv
+    return inv if inv.is_contiguous() else inv.mT.contiguous()
+
+
 def time_inverse(m):
-    """B^{-1} from the factor at the model's parameters: the port's
-    chol_inverse (triangular solve against I, then Linv^T Linv) against
-    torch.cholesky_inverse, CUDA-event medians of 3."""
+    """B^{-1} from the factor at the model's parameters, CUDA-event medians
+    of 3: ``chol_inverse`` on a copy of the factor and in the factor's own
+    storage (``overwrite=True``, as the loss calls it), the dense yardstick
+    and ``torch.cholesky_inverse``, against the bound of 2n^3/3 flops a
+    component at the f64 peak; then the blocked form (forced) against the
+    dense one at the factor's leading n = 1024 and 2048, the numbers that
+    set ``linalg._BLOCKED_MIN_N``."""
     import torch
     from lcgp_tpu_torch.ops import linalg
     ls, amp, nug, D, _ = loss_operands(m, m.free)
     L = loss_factor(m, ls, amp, nug, D)
+    q = D.shape[0]
+    work = torch.empty_like(L)
+    copy = cuda_ms(lambda: work.copy_(L), reps=3)
+    for n in sorted({1024, 2048, m.n} & set(range(m.n + 1))):
+        Ln = L[..., :n, :n].clone()
+        bound = q * 2 * n ** 3 / 3 / F64_PEAK * 1e3
+        plain = cuda_ms(lambda: dense_chol_inverse(Ln), reps=3)
+        blocked = cuda_ms(lambda: linalg._gram_tri_lower_(
+            linalg._tri_inverse_blocked_(Ln.clone())), reps=3)
+        a, b = linalg.chol_inverse(Ln), dense_chol_inverse(Ln)
+        rel = float((a - b).abs().max() / b.abs().max())
+        # the two forms round apart by up to ~cond(B) eps; a wrong block
+        # reads O(1)
+        check(rel <= 1e-8 and torch.equal(a, a.mT) and a.is_contiguous(),
+              f"chol_inverse at n={n}: {rel:.3e} off the dense form, or not "
+              "exactly symmetric and row-major")
+        say(f"  B^-1 (q={q}, n={n}): blocked {blocked:.3f} ms (copy "
+            "included), dense " f"{plain:.3f} ms, bound {bound:.3f} ms "
+            f"(blocked {bound / blocked:.1%} of it); max diff {rel:.3e} of "
+            "max |B^-1|")
+        del Ln, a, b
     ours = cuda_ms(lambda: linalg.chol_inverse(L), reps=3)
+    inplace = cuda_ms(lambda: linalg.chol_inverse(work.copy_(L),
+                                                  overwrite=True),
+                      reps=3) - copy
     lib = cuda_ms(lambda: torch.cholesky_inverse(L), reps=3)
-    a, b = linalg.chol_inverse(L), torch.cholesky_inverse(L)
-    rel = float((a - b).abs().max() / b.abs().max())
-    say(f"  B^-1 (q={D.shape[0]}, n={m.n}): chol_inverse {ours:.3f} ms, "
-        f"torch.cholesky_inverse {lib:.3f} ms (max diff {rel:.3e} of max "
-        f"|B^-1|)")
+    rel = float((linalg.chol_inverse(L) - torch.cholesky_inverse(L)).abs()
+                .max() / torch.cholesky_inverse(L).abs().max())
+    say(f"  B^-1 (q={q}, n={m.n}): chol_inverse {ours:.3f} ms, in the "
+        f"factor's storage {inplace:.3f} ms, torch.cholesky_inverse "
+        f"{lib:.3f} ms (max diff {rel:.3e} of max |B^-1|)")
 
 
 def phase_train(dev, x, y, xte, ytrue):
@@ -1379,6 +1422,7 @@ def phase_train(dev, x, y, xte, ytrue):
     from lcgp_tpu_torch import LCGP
     from lcgp_tpu_torch.fit._flat import Flattener
     from lcgp_tpu_torch.fit.scipy_lbfgs import value_and_grad
+    from lcgp_tpu_torch.ops import linalg
     from lcgp_tpu_torch.ops.matern import matern32_gram, matern32_gram_vjp
 
     def sync_s(t0):
@@ -1460,9 +1504,12 @@ def phase_train(dev, x, y, xte, ytrue):
     torch.cuda.reset_peak_memory_stats()
     matern32_gram.launches = 0
     matern32_gram_vjp.launches = 0
+    inv_paths = (linalg.chol_inverse.blocked, linalg.chol_inverse.dense)
     t0 = time.perf_counter()
     m.fit(method="scipy", maxiter=20)
     fit_s = sync_s(t0)
+    inv_paths = (linalg.chol_inverse.blocked - inv_paths[0],
+                 linalg.chol_inverse.dense - inv_paths[1])
     # the wrapper and m form a reference cycle, which would keep m and
     # the aux it builds below alive past this phase
     del m._loss_fn
@@ -1478,6 +1525,10 @@ def phase_train(dev, x, y, xte, ytrue):
           "evaluations, expected one per evaluation")
     check(k1_fit == res.nfev, f"K1 launched {k1_fit} times in {res.nfev} "
           "evaluations")
+    chunks = m.q // m.q_chunk if m.q_chunk else 1
+    say(f"  chol_inverse calls in the fit (blocked, dense): {inv_paths}")
+    check(inv_paths == (chunks * res.nfev, 0), "expected every chol_inverse "
+          f"call blocked, {chunks} an evaluation")
     check(bool(torch.isfinite(torch.stack(losses)).all()),
           "a loss in the fit was not finite")
     check(res.fun < l_init, "the fit did not lower the loss")
@@ -3401,6 +3452,7 @@ def phase_fitc(dev, card, registers):
     records and config 6's 'fast' model."""
     import torch
     from lcgp_tpu_torch.models.sparse import select_inducing
+    from lcgp_tpu_torch.ops import linalg
     x, _, _, _, kw = fitc_config(6)
     x_min, x_max = x.min(0), x.max(0)
     xs_np = (x - x_min) / (x_max - x_min)
@@ -3412,6 +3464,7 @@ def phase_fitc(dev, card, registers):
     records7 = phase_fitc7_kernels(dev, card)
 
     reset_all_counts()
+    inv_paths = (linalg.chol_inverse.blocked, linalg.chol_inverse.dense)
     say("  == the main path, every kernel's counts set to 0")
     say("  -- card vs CPU at a cut of config 6 (n=2000, m=64, f64)")
     x, y, _, _, _ = fitc_config(6)
@@ -3427,6 +3480,11 @@ def phase_fitc(dev, card, registers):
     timings["config8"] = phase_fitc_scale(dev, 8)
     counts = fitc_counts()
     say(f"  phase 11 main path launches (Gram, VJP, K5) f64 / f32: {counts}")
+    inv_paths = (linalg.chol_inverse.blocked - inv_paths[0],
+                 linalg.chol_inverse.dense - inv_paths[1])
+    say(f"  chol_inverse calls (blocked, dense): {inv_paths}")
+    check(inv_paths[0] == 0 and inv_paths[1] > 0, "expected every "
+          "chol_inverse call of FITC's (m, m) inverses (m <= 512) dense")
     say(f"  phase 11 timings JSON: {json.dumps(timings)}")
     for rec in records:
         kind = rec["name"].split("_gram")[0]

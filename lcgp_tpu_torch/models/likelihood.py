@@ -102,13 +102,15 @@ def _factor_solve_vec(L: torch.Tensor, B: torch.Tensor, v: torch.Tensor,
 
 
 def _factor_inverse(L: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """(L L^T)^{-1} for the loss gradient.  'mixed' takes the f32 potri
-    seed alone (newton_steps=0): an f64-grade loss with f32-grade
-    gradients, as ``lcgp_tpu/models/likelihood.py:42-61`` designs it;
-    'mixed:N' tightens only the forward refinement."""
+    """(L L^T)^{-1} for the loss gradient.  The caller gives L up: under
+    'high' and 'fast' the inverse is formed in L's storage, to save a
+    (qc, n, n) buffer.  'mixed' takes the f32 potri seed alone
+    (newton_steps=0): an f64-grade loss with f32-grade gradients, as
+    ``lcgp_tpu/models/likelihood.py:42-61`` designs it; 'mixed:N'
+    tightens only the forward refinement."""
     if mixed_ops.is_mixed(compute_dtype):
         return mixed_ops.chol_inverse_from_factor_mixed(L, newton_steps=0)
-    return linalg.chol_inverse(L)
+    return linalg.chol_inverse(L, overwrite=True)
 
 
 def _dtypes(compute_dtype, xs):

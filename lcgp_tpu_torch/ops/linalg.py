@@ -1,11 +1,12 @@
 """Batched Cholesky primitives (counterpart of ``lcgp_tpu/ops/linalg.py``).
 
 Thin ``torch.linalg`` wrappers over a leading component/batch axis.  The
-JAX package's blocked f64 Cholesky and triangular inverse exist only to
-route around the TPU's emulated f64; on a GPU these are cuSOLVER/cuBLAS
-calls.  The structured triangular products at the end (syrk, trmm, ...)
-are ported with their 512-blocking: the mixed-precision refinement
-(``ops/mixed.py``) is made of them.
+JAX package's blocked f64 Cholesky exists only to route around the TPU's
+emulated f64; on a GPU it is a cuSOLVER call.  The triangular inverse and
+B^{-1} are blocked from two 512-blocks up, in gemms that follow the
+operands' triangles.  The structured triangular products at the end
+(syrk, trmm, ...) are ported with their 512-blocking: the mixed-precision
+refinement (``ops/mixed.py``) is made of them.
 """
 from __future__ import annotations
 
@@ -63,29 +64,164 @@ def cho_solve_vec(chols: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
 
 
 def tri_inverse_lower(chols: torch.Tensor) -> torch.Tensor:
-    """L^{-1} for lower-triangular L, batched: one triangular solve against
-    I (cuBLAS trsm on CUDA).  The JAX package's blocked form only routes
-    around the TPU's slow substitution; the values agree to rounding."""
+    """L^{-1} for lower-triangular L, batched; a fresh tensor, lower
+    triangular (L's strict upper triangle is not read).
+
+    From two blocks up (n >= ``_BLOCKED_MIN_N``) the blocked inverse of
+    ``_tri_inverse_blocked_`` (~n^3/3 flops, in gemms); below, one
+    triangular solve against I (n^3 flops, cuBLAS trsm on CUDA).  The
+    counters ``tri_inverse_lower.blocked`` and ``.dense`` count the calls
+    that took each path."""
+    if chols.shape[-1] < _BLOCKED_MIN_N:
+        _TRI_INVERSE_LOWER.dense += 1
+        return _tri_inverse_solve(chols)
+    _TRI_INVERSE_LOWER.blocked += 1
+    n = chols.shape[-1]
+    return _tri_inverse_blocked_(
+        torch.tril(chols).reshape(-1, n, n)).reshape(chols.shape)
+
+
+def chol_inverse(chols: torch.Tensor, overwrite: bool = False
+                 ) -> torch.Tensor:
+    """(L L^T)^{-1} = L^{-T} L^{-1} from the lower factor L, batched: the
+    loss gradient's B^{-1}.  Exactly symmetric and row-major contiguous,
+    which the K2 kernel needs.
+
+    From two blocks up (n >= ``_BLOCKED_MIN_N``) it is formed in place in
+    one (..., n, n) buffer: L^{-1} by the blocked triangular inverse, then
+    the triangular Gram L^{-T} L^{-1} over it, 2n^3/3 flops in all against
+    the dense form's 3n^3.  ``overwrite=True`` is for a caller that gives
+    the factor up: the buffer is then L's own storage, and the result may
+    share it.  Otherwise the buffer is a copy of L.  Only L's lower
+    triangle is read.  Below two blocks: one triangular solve against I
+    and one matmul.  The counters ``chol_inverse.blocked`` and ``.dense``
+    count the calls that took each path.
+
+    On an H100 (700 W) at (20, 4096, 4096) f64 the blocked form took
+    33.0 ms in the factor's storage, the dense form 95.8 ms and
+    ``torch.cholesky_inverse``, which computes the same, 307.2 ms
+    (PERF.md)."""
+    if chols.shape[-1] < _BLOCKED_MIN_N:
+        _CHOL_INVERSE.dense += 1
+        linv = _tri_inverse_solve(chols)
+        inv = linv.mT @ linv
+    else:
+        _CHOL_INVERSE.blocked += 1
+        # the port updates in place here to save memory: L, then L^{-1},
+        # then B^{-1} live in one buffer
+        n = chols.shape[-1]
+        buf = (chols if overwrite else chols.clone()).reshape(-1, n, n)
+        inv = _gram_tri_lower_(_tri_inverse_blocked_(buf)).reshape(
+            chols.shape)
+    # on CUDA the result can be column-major (the factor's or the
+    # product's layout); the matrix is symmetric, so its transpose is the
+    # same inverse with row-major strides (no copy)
+    return inv if inv.is_contiguous() else inv.mT.contiguous()
+
+
+# the path counters; the bodies reach them through these private names,
+# so that a wrapper put in place of the module's attribute still counts
+_CHOL_INVERSE, _TRI_INVERSE_LOWER = chol_inverse, tri_inverse_lower
+chol_inverse.blocked = chol_inverse.dense = 0
+tri_inverse_lower.blocked = tri_inverse_lower.dense = 0
+
+
+def _tri_inverse_solve(chols: torch.Tensor) -> torch.Tensor:
+    """L^{-1}: one triangular solve against I."""
     n = chols.shape[-1]
     eye = torch.eye(n, dtype=chols.dtype, device=chols.device)
     return torch.linalg.solve_triangular(chols, eye.expand_as(chols),
                                          upper=False, left=True)
 
 
-def chol_inverse(chols: torch.Tensor) -> torch.Tensor:
-    """(L L^T)^{-1} = L^{-T} L^{-1} from the lower factor L, batched: one
-    triangular solve against I (cuBLAS trsm on CUDA) and one matmul.  The
-    loss gradient's B^{-1}.
+# The blocked forms of L^{-1} and B^{-1} (counterparts of lcgp_tpu's
+# tri_inverse_lower/_tri_inverse_combine and gram_tri_lower).  Both work
+# in place on one (b, n, n) buffer over _TRI_INV_BLOCK-blocks; what else
+# they allocate is (b, nb, nb).  An n that is not a block multiple ends in
+# one narrower block (no zero padding, which would take a padded copy and
+# a contiguous copy of its slice).
+#
+# _BLOCKED_MIN_N: the dense forms are used below it.  B^{-1} on an H100
+# (700 W) at q = 20, f64, blocked against dense: 2.135 against 2.915 ms at
+# n = 1024, 7.082 against 14.924 at 2048, 33.217 against 95.839 at 4096
+# (PERF.md).  FITC's (m, m) inverses at m <= 512 stay dense.
 
-    ``torch.cholesky_inverse`` computes the same; on an H100 (700 W) at
-    (20, 4096, 4096) f64 it took 298.5 ms against 95.0 ms for this form
-    (PERF.md).  The result is a fresh contiguous tensor."""
-    linv = tri_inverse_lower(chols)
-    inv = linv.mT @ linv
-    # on CUDA the product can come back column-major; the matrix is
-    # symmetric, so its transpose is the same inverse with row-major strides
-    # (no copy), which the K2 kernel needs
-    return inv if inv.is_contiguous() else inv.mT.contiguous()
+_TRI_INV_BLOCK = 512
+_BLOCKED_MIN_N = 2 * _TRI_INV_BLOCK
+
+
+def _block_bounds(n: int, nb: int) -> list[int]:
+    return list(range(0, n, nb)) + [n]
+
+
+def _tri_inverse_blocked_(X: torch.Tensor) -> torch.Tensor:
+    """Overwrite lower-triangular X (b, n, n) with X^{-1} and return it.
+
+    The diagonal blocks are inverted first, by solves against a
+    block-sized I.  Then block (i, k) below the diagonal, taken column by
+    column and downwards, is ``-inv_i @ (L[i, k:i] @ X[k:i, k])``: it
+    reads row i of L left of the diagonal, still unwritten, and the
+    blocks of column k above it, already inverted.  Only the lower
+    triangle is read; above the diagonal only the diagonal blocks are
+    written, with zeros."""
+    _invert_diag_blocks_(X)
+    b = _block_bounds(X.shape[-1], _TRI_INV_BLOCK)
+    for k in range(len(b) - 2):
+        ck = slice(b[k], b[k + 1])
+        for i in range(k + 1, len(b) - 1):
+            ci = slice(b[i], b[i + 1])
+            acc = X[:, ci, b[k]:b[i]] @ X[:, b[k]:b[i], ck]
+            torch.bmm(X[:, ci, ci], acc.neg_(), out=X[:, ci, ck])
+    return X
+
+
+def _invert_diag_blocks_(X: torch.Tensor) -> torch.Tensor:
+    """Replace each diagonal block of lower-triangular X (b, n, n) by its
+    inverse.  The whole blocks go two to a batched solve, a view of X with
+    the blocks' stride.  On an H100 at (10, 4096, 4096) f64 the eight took
+    4.04 ms in eight solves, 2.74 in four, 1.92 in one (PERF.md); two a
+    solve keep the solve's copies of its operands at a 16th of X at
+    n = 4096."""
+    nb = _TRI_INV_BLOCK
+    n = X.shape[-1]
+    nd = n // nb
+    sr, sc = X.stride(-2), X.stride(-1)
+    step = nb * (sr + sc)
+    eye = torch.eye(nb, dtype=X.dtype, device=X.device)
+    for j in range(0, nd, 2):
+        blocks = X.as_strided((X.shape[0], min(2, nd - j), nb, nb),
+                              (X.stride(0), step, sr, sc),
+                              X.storage_offset() + j * step)
+        blocks.copy_(torch.linalg.solve_triangular(
+            blocks, eye.expand_as(blocks), upper=False, left=True))
+    if n % nb:
+        tail = X[:, nd * nb:, nd * nb:]
+        tail.copy_(_tri_inverse_solve(tail))
+    return X
+
+
+def _gram_tri_lower_(M: torch.Tensor) -> torch.Tensor:
+    """Overwrite lower-triangular M (b, n, n) with M^T M, exactly
+    symmetric, and return it (n^3/3 flops, as ``gram_tri_lower``).
+
+    Block row i of the result's lower triangle contracts only over M's
+    rows >= ib.  Its transpose, the block column above the diagonal block,
+    is one gemm ``M[ib:, :ib]^T @ M[ib:, ib:ib+nb]`` written straight
+    into M's upper triangle, which no later block reads; the diagonal block
+    goes through a block-sized temporary.  The upper triangle is then
+    mirrored into the lower one."""
+    b = _block_bounds(M.shape[-1], _TRI_INV_BLOCK)
+    for s, e in zip(b[:-1], b[1:]):
+        col = M[:, s:, s:e]
+        diag = col.mT @ col
+        if s:
+            torch.bmm(M[:, s:, :s].mT, col, out=M[:, :s, s:e])
+        lower = torch.ones((e - s, e - s), dtype=torch.bool,
+                           device=M.device).tril_()
+        M[:, s:e, s:e] = torch.where(lower, diag, diag.mT)
+    for s, e in zip(b[1:-1], b[2:]):
+        M[:, s:e, :s] = M[:, :s, s:e].mT
+    return M
 
 
 def quad_chol(chols: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
@@ -100,7 +236,9 @@ def quad_chol(chols: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
 # Each works on 512-blocks and does only the block products its operands'
 # triangles need; the products inside are torch.matmul, as the JAX package
 # left them to XLA.  Non-block-divisible n is zero-padded to the next block
-# multiple (see _pad_nn); n below two blocks falls back to the dense matmul.
+# multiple (see _pad_nn), except in gram_tri_lower, which shares B^{-1}'s
+# Gram and its narrower last block; n below two blocks falls back to the
+# dense matmul.
 # ---------------------------------------------------------------------------
 
 _TRI_SYRK_BLOCK = 512
@@ -147,22 +285,12 @@ def syrk_tri_lower(L: torch.Tensor) -> torch.Tensor:
 
 
 def gram_tri_lower(M: torch.Tensor) -> torch.Tensor:
-    """M^T @ M for LOWER-TRIANGULAR M (n^3/3 flops): block-row i of the
-    lower triangle only contracts over rows >= i nb, so it is one GEMM
-    ``M[ib:, ib:ib+nb]^T @ M[ib:, :w]``."""
+    """M^T @ M for LOWER-TRIANGULAR M (n^3/3 flops): B^{-1}'s Gram,
+    ``_gram_tri_lower_``, on a copy of M; exactly symmetric."""
     n = M.shape[-1]
-    nb = _TRI_SYRK_BLOCK
-    if n < 2 * nb:
+    if n < _BLOCKED_MIN_N:
         return M.mT @ M
-    if n % nb:
-        return gram_tri_lower(_pad_nn(M, _next_mult(n, nb)))[..., :n, :n]
-    nd = n // nb
-    S = torch.zeros_like(M)
-    for i in range(nd):
-        w = (i + 1) * nb
-        S[..., i * nb:w, :w] = (M[..., i * nb:, i * nb:w].mT
-                                @ M[..., i * nb:, :w])
-    return _sym_from_block_lower(S, nd, nb)
+    return _gram_tri_lower_(M.clone().reshape(-1, n, n)).reshape(M.shape)
 
 
 def trmm_lower(L: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

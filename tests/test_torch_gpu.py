@@ -477,6 +477,56 @@ def test_kernel_f32_at_the_fast_loss_shape_with_its_epilogue(dev):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
 
 
+def _dense_chol_inverse(L):
+    """The dense form of B^{-1}: a triangular solve against I, then
+    L^{-T} L^{-1} as one matmul (``chol_inverse`` below two blocks)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return linv.mT @ linv
+
+
+def test_chol_inverse_blocked_at_the_fit_shape(dev):
+    """B^{-1} at (10, 4096, 4096) f64, the loss's chunk at config 4, with
+    B = D C + I of a Matern 3/2 field on 8 inputs (K1's epilogue): the
+    blocked form within 1e-12 of the dense form's max |B^{-1}|, exactly
+    symmetric and row-major.  Across the call the device holds at most the
+    input, one (10, n, n) buffer and 5% of those two; with
+    ``overwrite=True`` no such buffer, only block-sized temporaries (the
+    diagonal blocks' solves take a 16th of one)."""
+    from lcgp_tpu_torch.ops import linalg
+    q, n = 10, 4096
+    x, _, ls, amp, nug = _inputs(dev, 91, n, 1, 8, q)
+    D = torch.linspace(0.5, 20.0, q, dtype=torch.float64, device=dev)
+    B, _ = TM.launch_matern32(x, x, ls, amp, nug, same=True, row_scale=D,
+                              diag_vec=torch.ones((q, n), dtype=torch.float64,
+                                                  device=dev))
+    L = linalg.cholesky(B)
+    del B
+    ref = _dense_chol_inverse(L)
+    buffer = L.numel() * L.element_size()
+    blocked = linalg.chol_inverse.blocked
+
+    def peak_over(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    got, extra = peak_over(lambda: linalg.chol_inverse(L))
+    # the memory before the call holds the input
+    assert extra <= buffer + 0.05 * 2 * buffer, extra / buffer
+    assert torch.equal(got, got.mT) and got.is_contiguous()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-12, err
+    del ref
+    mine, extra = peak_over(lambda: linalg.chol_inverse(L, overwrite=True))
+    assert extra <= buffer / 8, extra / buffer
+    assert torch.equal(mine, got)
+    assert linalg.chol_inverse.blocked == blocked + 2
+
+
 def test_vjp_kernel_f32_at_the_mixed_operating_point(dev):
     # M = the f32 potri seed of a refined factor, alpha = D/2 in f32 and
     # w = B^{-1} a refined in f64, cast to f32: what 'mixed' hands K2

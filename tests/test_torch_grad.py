@@ -350,13 +350,44 @@ def _spd(seed, q, n):
     return a @ a.transpose(0, 2, 1) / n + np.eye(n)
 
 
-@pytest.mark.parametrize('n', [40, 1100])
-def test_chol_inverse_matches_jax(n):
-    A = _spd(11, 2, n)
+@pytest.mark.parametrize('n,q', [(40, 2), (1100, 2), (1024, 3)],
+                         ids=['40', '1100', '1024-q3'])
+def test_chol_inverse_matches_jax(n, q):
+    # n = 40: the dense form; 1100: the blocked form with a narrower last
+    # block; 1024: two whole blocks, each package's blocked form
+    A = _spd(11, q, n)
     got = TL.chol_inverse(TL.cholesky(_t(A)))
     ref = JL.chol_inverse(JL.cholesky(jnp.asarray(A)))
     err = np.max(np.abs(_np(got) - np.asarray(ref)))
     assert err <= 1e-10 * np.max(np.abs(np.asarray(ref)))
+    assert got.is_contiguous()
+    if n >= TL._BLOCKED_MIN_N:
+        # the blocked form mirrors one triangle: exactly symmetric
+        assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize('n', [40, 1100])
+def test_chol_inverse_keeps_its_input_and_counts_its_path(n):
+    """The default call leaves the factor bit for bit; ``overwrite=True``
+    gives the same bits, formed in the factor's storage from two blocks
+    up; the counters name the path each call took."""
+    L = TL.cholesky(_t(_spd(13, 2, n)))
+    L0 = L.clone()
+    blocked = n >= TL._BLOCKED_MIN_N
+    before = (TL.chol_inverse.blocked, TL.chol_inverse.dense,
+              TL.tri_inverse_lower.blocked, TL.tri_inverse_lower.dense)
+    got = TL.chol_inverse(L)
+    assert torch.equal(L, L0)
+    assert torch.equal(TL.tri_inverse_lower(L), TL.tri_inverse_lower(L0))
+    assert torch.equal(L, L0)
+    mine = TL.chol_inverse(L, overwrite=True)
+    assert torch.equal(mine, got)
+    assert (mine.untyped_storage().data_ptr()
+            == L.untyped_storage().data_ptr()) == blocked
+    after = (TL.chol_inverse.blocked, TL.chol_inverse.dense,
+             TL.tri_inverse_lower.blocked, TL.tri_inverse_lower.dense)
+    assert [a - b for a, b in zip(after, before)] == (
+        [2, 0, 2, 0] if blocked else [0, 2, 0, 2])
 
 
 def test_quad_chol_matches_jax():

@@ -17,9 +17,11 @@ Tolerances, stated per comparison:
   steps the seed's error squared twice, within 1e-11 of the f64 inverse.
 
 n = 1100, q = 1 takes the 512-blocked, zero-padded branch in both packages
-(n >= 1024, n % 512 != 0): the products in f64 and f32, the triangular
-inverse and a 2-step ``cholesky_mixed``; n = 300 (the dense fallback)
-covers every refinement and inverse variant.
+(n >= 1024, n % 512 != 0): the products in f64 and f32 and a 2-step
+``cholesky_mixed``; the port's triangular inverse is blocked there with a
+narrower last block (the JAX package's is its solve), and at n = 1024 both
+are blocked.  n = 300 (the dense fallback) covers every refinement and
+inverse variant.
 """
 import numpy as np
 import pytest
@@ -128,14 +130,23 @@ def test_mul_lower_lower_matches_jax(q, n, tdt, jdt, eps):
     assert not np.triu(got, 1).any()
 
 
-@pytest.mark.parametrize('q,n', [(2, 300), (1, 1100)])
-def test_tri_inverse_lower_matches_jax(q, n):
+@pytest.mark.parametrize('q,n,tdt,jdt,eps', [
+    (2, 300, torch.float64, jnp.float64, EPS64),
+    (1, 1100, torch.float64, jnp.float64, EPS64),
+    (2, 1024, torch.float64, jnp.float64, EPS64),
+    (2, 1024, torch.float32, jnp.float32, EPS32),
+    (1, 1100, torch.float32, jnp.float32, EPS32)],
+    ids=['2-300', '1-1100', '2-1024', '2-1024-f32', '1-1100-f32'])
+def test_tri_inverse_lower_matches_jax(q, n, tdt, jdt, eps):
+    # the port's blocked inverse from n = 1024 (a narrower last block at
+    # 1100), its solve below; the JAX package's blocked inverse
+    # (n % 512 == 0) or its solve
     L = _lower(8, q, n)
-    got = TL.tri_inverse_lower(_t(L))
-    # the JAX package's blocked inverse (n % 512 == 0) or its solve
-    _normwise(got.numpy(), JL.tri_inverse_lower(_j(L)), n * EPS64)
-    _normwise((got @ _t(L)).numpy(), np.broadcast_to(np.eye(n), (q, n, n)),
-              n * EPS64)
+    got = TL.tri_inverse_lower(_t(L, tdt))
+    assert got.dtype == tdt and not torch.triu(got, 1).any()
+    _normwise(got.numpy(), JL.tri_inverse_lower(_j(L, jdt)), n * eps)
+    _normwise((got.double() @ _t(L)).numpy(),
+              np.broadcast_to(np.eye(n), (q, n, n)), n * eps)
 
 
 def test_pad_helpers_match_jax():
