@@ -30,7 +30,11 @@ at the cotangent autograd hands it, and K5 for ``z``.
 
 Precision, as in the reference: Kmm, Lmm, M and LM are f64; Knm, W and the
 n-sized work are in the compute dtype; the n-length reductions accumulate
-in f64, G = W^T Lam~^{-1} W over blocks of G_BLOCK rows (:func:`_wtw`).
+in f64, an f32 product over n in blocks of G_BLOCK rows (:func:`_nsum`,
+forward and backward), and an f32 loss takes its quadratic term in one
+pass (:func:`_fitc_terms`).  Spans (``utils.profiling``, device time on
+CUDA): ``lcgp.fitc.panel`` Knm and W's solve, ``lcgp.fitc.nsum`` each
+blocked sum and each one's backward.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import linalg
 from ..ops.gram import gram_stack
 from ..ops.matern import matern32_diag
+from ..utils.profiling import device_span
 from . import params as P
 from .likelihood import FullData, RepData, _dtypes
 
@@ -72,80 +77,98 @@ def select_inducing(x, m: int):
     return x[np.asarray(idx)]
 
 
-def _einsum_qnm_qn(W, v):
-    """W^T v per component: (q, n, m), (q, n) -> (q, m)."""
-    return torch.einsum('qnm,qn->qm', W, v)
-
-
-def _einsum_qnm_qm(W, s):
-    """W s per component: (q, n, m), (q, m) -> (q, n)."""
-    return torch.einsum('qnm,qm->qn', W, s)
-
-
-# G = W^T Lam~^{-1} W is the one n-length reduction of the Woodbury core
-# whose rounding M = I + G amplifies.  A single f32 GEMM adds each entry's n
-# terms into one accumulator, as cuBLAS does at this shape: at config 7
-# (n = 400,000) its G was 3.0e-5 (of the largest entry) off the f64 product
-# of the same inputs on an H100, where the CPU's BLAS was 1.7e-7 off, and
-# the 'fast' loss 17% off f64.  So an f32 G is summed over blocks of
-# G_BLOCK rows, one GEMM a block, and the blocks' partials are added in f64
-# (tools/fitc_bisect.py on an H100: 1024 rows 6.3e-9 and the loss 1.3e-4
-# off, in 20.1 ms against the one GEMM's 20.7); an f64 G stays one GEMM.
+# Every contraction over the n axis of an f32 panel goes through one rule,
+# :func:`_nsum`.  A single f32 GEMM adds each entry's n terms into one
+# accumulator, as cuBLAS does at these shapes: at config 7 (n = 400,000) an
+# f32 G = W^T Lam~^{-1} W was 3.0e-5 (of the largest entry) off the f64
+# product of the same inputs on an H100, where the CPU's BLAS was 1.7e-7
+# off, and the 'fast' loss 17% off f64.  So an f32 contraction is summed over
+# blocks of G_BLOCK rows, one GEMM a block, and the blocks' partials are
+# added in f64 (tools/fitc_bisect.py on an H100: 1024 rows 6.3e-9 and the
+# loss 1.3e-4 off, in 20.1 ms against the one GEMM's 20.7); its backward's
+# products run over m, not n.  An f64 contraction stays one product.
 G_BLOCK = 1024
 # the partial products materialized at a time (entries): the blocked sum's
 # extra memory stays ~128 MB whatever n
 _G_GROUP_ENTRIES = 1 << 25
 
 
-def _blocked_wtw(A, W, block):
-    """sum_b A[:, :, b] @ W[:, b, :] in f64 over row blocks b of ``block``
-    rows, each block's product in A's dtype; A (q, m, n), W (q, n, k).
-    One component at a time, so that the blocks of A and W are strided
+def _blocked_nsum(A, B, block):
+    """sum_b A[:, :, b] @ B[:, b, :] in f64 over row blocks b of ``block``
+    rows, each block's product in A's dtype; A (q, m, n), B (q, n, k).
+    One component at a time, so that the blocks of A and B are strided
     views of the operands, not copies."""
     q, m, n = A.shape
-    k = W.shape[-1]
+    k = B.shape[-1]
     full = n - n % block
     rows = max(1, _G_GROUP_ENTRIES // (m * k)) * block
-    G = torch.zeros((q, m, k), dtype=_F64, device=A.device)
+    out = torch.zeros((q, m, k), dtype=_F64, device=A.device)
     for c in range(q):
         for s in range(0, full, rows):
             e = min(s + rows, full)
             a = A[c, :, s:e].unflatten(-1, (-1, block)).transpose(0, 1)
-            w = W[c, s:e, :].unflatten(0, (-1, block))
-            G[c] += torch.sum(a @ w, dim=0, dtype=_F64)
+            b = B[c, s:e, :].unflatten(0, (-1, block))
+            out[c] += torch.sum(a @ b, dim=0, dtype=_F64)
     if full < n:
-        G += (A[..., full:] @ W[..., full:, :]).to(_F64)
-    return G
+        out += (A[..., full:] @ B[..., full:, :]).to(_F64)
+    return out
 
 
-class _BlockedWtW(torch.autograd.Function):
-    """:func:`_blocked_wtw` with the gradient of the plain product
-    ``(A @ W).to(f64)``: the cotangent in A's dtype times the other
-    operand, two GEMMs with m-length sums.  (Autograd through the blocks'
-    slices would build a gradient of A's and W's full size for each
-    block.)"""
+class _NSum(torch.autograd.Function):
+    """:func:`_blocked_nsum` with the gradient of the plain product
+    ``(A @ B).to(f64)``: the cotangent in A's dtype times the other
+    operand, two GEMMs with sums over m and k.  (Autograd through the
+    blocks' slices would build a gradient of A's and B's full size for
+    each block.)  Each direction is an ``lcgp.fitc.nsum`` device span."""
 
     @staticmethod
-    def forward(ctx, A, W, block):
-        ctx.save_for_backward(A, W)
-        return _blocked_wtw(A, W, block)
+    def forward(ctx, A, B):
+        ctx.save_for_backward(A, B)
+        _nsum.blocked += 1
+        with device_span('lcgp.fitc.nsum', A.device):
+            return _blocked_nsum(A, B, G_BLOCK)
 
     @staticmethod
     def backward(ctx, g):
-        A, W = ctx.saved_tensors
-        g = g.to(A.dtype)
-        gA = g @ W.mT if ctx.needs_input_grad[0] else None
-        gW = A.mT @ g if ctx.needs_input_grad[1] else None
-        return gA, gW, None
+        A, B = ctx.saved_tensors
+        _nsum.backward += 1
+        with device_span('lcgp.fitc.nsum', A.device):
+            g = g.to(A.dtype)
+            gA = g @ B.mT if ctx.needs_input_grad[0] else None
+            gB = A.mT @ g if ctx.needs_input_grad[1] else None
+        return gA, gB
 
 
-def _wtw(A, W):
-    """G = A @ W (q, m, k) in f64, A = W^T Lam~^{-1} (q, m, n): one GEMM
-    in f64; in f32 a GEMM a block of :data:`G_BLOCK` rows, the partials
-    added in f64."""
+def _nsum(A, B):
+    """A @ B (q, m, k) in f64 for A (q, m, n), B (q, n, k): the sum over
+    the n axis.  f64 operands: one product.  f32: a GEMM a block of
+    :data:`G_BLOCK` rows, the partials added in f64 (:class:`_NSum`).  The
+    counters ``_nsum.single``, ``.blocked`` and ``.backward`` count the
+    calls of each kind (a backward: the blocked sum's)."""
     if A.dtype == _F64:
-        return A @ W
-    return _BlockedWtW.apply(A, W, G_BLOCK)
+        _nsum.single += 1
+        return A @ B
+    return _NSum.apply(A, B)
+
+
+_nsum.single = _nsum.blocked = _nsum.backward = 0
+
+
+def _einsum_qnm_qn(W, v):
+    """W^T v per component, (q, n, m), (q, n) -> (q, m) in f64: a sum over
+    n (:func:`_nsum`; in f64 the einsum of old, whose bits the f64 losses
+    keep)."""
+    if W.dtype == _F64:
+        _nsum.single += 1
+        return torch.einsum('qnm,qn->qm', W, v)
+    return _NSum.apply(W.mT, v[..., None])[..., 0]
+
+
+def _einsum_qnm_qm(W, s):
+    """W s per component: (q, n, m), (q, m) -> (q, n): its sums run over m.
+    (No loss differentiates through it in f32, where the gradient in s
+    would sum over n.)"""
+    return torch.einsum('qnm,qm->qn', W, s)
 
 
 def _lmm64(z, lLmb, lLmb0, lnug, kernel):
@@ -157,14 +180,37 @@ def _lmm64(z, lLmb, lLmb0, lnug, kernel):
     return linalg.cholesky(linalg.add_diag(Kmm64, KMM_JITTER * amp64[:, None]))
 
 
+class _PanelSolve(torch.autograd.Function):
+    """W = Knm Lmm^{-T} for an f32 panel.  The solve's gradient in Lmm,
+    -tril(Lmm^{-T} dW^T W), sums over n: it goes through :func:`_nsum`
+    (autograd's own takes one f32 GEMM over n)."""
+
+    @staticmethod
+    def forward(ctx, Lmm, Knm):
+        W = linalg.solve_tri_lower(Lmm, Knm.mT).mT
+        ctx.save_for_backward(Lmm, W)
+        return W
+
+    @staticmethod
+    def backward(ctx, gW):
+        Lmm, W = ctx.saved_tensors
+        gB = torch.linalg.solve_triangular(Lmm.mT, gW.mT, upper=True)
+        gL = (-_nsum(gB, W).to(Lmm.dtype).tril_()
+              if ctx.needs_input_grad[0] else None)
+        return gL, gB.mT
+
+
 def _panel(xs, z, Lmm, lLmb, lLmb0, lnug, lam, *, compute_dtype, kernel):
     """W = Knm Lmm^{-T} (q, n, m) and Lam~ (q, n) of the points xs, in
-    Lmm's (the compute) dtype."""
-    Knm = gram_stack(xs, z, lLmb, lLmb0, lnug, same=False,
-                     compute_dtype=compute_dtype, kind=kernel)
+    Lmm's (the compute) dtype; Knm and the solve an ``lcgp.fitc.panel``
+    device span."""
     dt = Lmm.dtype
-    # W = Knm Lmm^{-T}: solve Lmm W^T = Knm^T
-    W = linalg.solve_tri_lower(Lmm, Knm.mT).mT
+    with device_span('lcgp.fitc.panel', xs.device):
+        Knm = gram_stack(xs, z, lLmb, lLmb0, lnug, same=False,
+                         compute_dtype=compute_dtype, kind=kernel)
+        # W = Knm Lmm^{-T}: solve Lmm W^T = Knm^T
+        W = (linalg.solve_tri_lower(Lmm, Knm.mT).mT if dt == _F64
+             else _PanelSolve.apply(Lmm, Knm))
     q_diag = torch.sum(torch.square(W), dim=-1)                # (q, n)
     c_diag = lLmb0.to(_F64).to(dt)[:, None] * torch.ones_like(q_diag)
     # torch.maximum splits a tie's gradient as jnp.maximum does
@@ -194,7 +240,7 @@ def _fitc_core(xs, z, lLmb, lLmb0, lnug, lam, *, compute_dtype, kernel):
     W, lam_t = _panel(xs, z, Lmm, lLmb, lLmb0, lnug, lam,
                       compute_dtype=compute_dtype, kernel=kernel)
     WtLi = W.mT / lam_t[:, None, :]                            # (q, m, n)
-    M64 = linalg.add_diag(_wtw(WtLi, W), 1.0)
+    M64 = linalg.add_diag(_nsum(WtLi, W), 1.0)
     LM = linalg.cholesky(M64)                                  # (q, m, m) f64
     return FitcCore(Lmm=Lmm, W=W, lam_t=lam_t, LM=LM)
 
@@ -214,17 +260,36 @@ def _fitc_logdet(core: FitcCore):
 
 
 def _fitc_terms(core: FitcCore, lam, b):
-    """u, quad and ld per component.  The n-length reductions accumulate in
-    f64 whatever the compute dtype: at n=50k an f32 sum of O(1) terms
-    resolves the loss only to ~1e0 absolute, which blinds a line search."""
+    """quad = b^T C_hat u and ld per component, u = (C_hat + Lam)^{-1}
+    Lam b.  The n-length reductions accumulate in f64 whatever the compute
+    dtype: at n=50k an f32 sum of O(1) terms resolves the loss only to ~1e0
+    absolute, which blinds a line search.
+
+    In f32, quad = sum lam b^2 - sum lam b vi + t^T M^{-1} t with
+    vi = lam b / Lam~ and t = W^T vi (the streamed path's one pass, the
+    benchmark reference's recipe).  Through u instead, u = vi - Lam~^{-1}
+    W M^{-1} t cancels, and C_hat u = W W^T u + (Lam~ - Lam) u multiplies
+    u's rounding by C_hat: along a 'fast' fit at config 7 that path left
+    f64 by up to 1e-2 an output entry (``tools/fitc_bisect.py --along``;
+    PERF.md).  In f64 quad goes through u, lcgp_tpu's path, whose bits the
+    f64 losses keep."""
     dt = core.W.dtype
     b = b.to(dt)
-    u = _fitc_solve(core, lam.to(dt) * b)
-    # C_hat u = W W^T u + (lam_t - lam) u   (diag corr = lam_t - lam)
-    Cu = (_einsum_qnm_qm(core.W, _einsum_qnm_qn(core.W, u))
-          + (core.lam_t - lam.to(dt)) * u)
-    quad = torch.sum((b * Cu).to(_F64), dim=-1)
-    return u, quad, _fitc_logdet(core)
+    lb = lam.to(dt) * b
+    if dt == _F64:
+        u = _fitc_solve(core, lb)
+        # C_hat u = W W^T u + (lam_t - lam) u   (diag corr = lam_t - lam)
+        Cu = (_einsum_qnm_qm(core.W, _einsum_qnm_qn(core.W, u))
+              + (core.lam_t - lam.to(dt)) * u)
+        quad = torch.sum(b * Cu, dim=-1)
+    else:
+        vi = lb / core.lam_t
+        t = _einsum_qnm_qn(core.W, vi)
+        s = linalg.cho_solve_vec(core.LM, t)
+        quad = (torch.sum((lb * b).to(_F64), dim=-1)
+                - torch.sum((lb * vi).to(_F64), dim=-1)
+                + torch.sum(t * s, dim=-1))
+    return quad, _fitc_logdet(core)
 
 
 class FitcStream(NamedTuple):
@@ -276,8 +341,8 @@ def _stream_block(xs_b, z, Lmm, lLmb, lLmb0, lnug, lam_b, b_b, w_b, *,
     b_dt = b_b.to(dt)
     vi = lam_dt * b_dt / lam_t                                 # (q, nc)
     wq = w_b.to(dt)[None, :]
-    G = _wtw(W.mT * (wq / lam_t)[:, None, :], W)
-    t = _einsum_qnm_qn(W, wq * vi).to(_F64)
+    G = _nsum(W.mT * (wq / lam_t)[:, None, :], W)
+    t = _einsum_qnm_qn(W, wq * vi)
     sumlog = torch.sum(w_b * torch.log(lam_t.to(_F64)), dim=-1)
     bb = torch.sum((wq * lam_dt * b_dt * b_dt).to(_F64), dim=-1)
     bu = torch.sum((wq * lam_dt * b_dt * vi).to(_F64), dim=-1)
@@ -362,8 +427,7 @@ def _quad_ld(xs, z, lLmb, lLmb0, lnug, lam, b, n_chunk, compute_dtype,
         return st.quad, st.ld
     core = _fitc_core(xs, z, lLmb, lLmb0, lnug, lam,
                       compute_dtype=compute_dtype, kernel=kernel)
-    _, quad, ld = _fitc_terms(core, lam, b)
-    return quad, ld
+    return _fitc_terms(core, lam, b)
 
 
 def neglpost_full_fitc(free: P.FreeParams, data: FullData, z,
@@ -445,11 +509,11 @@ def compute_aux_fitc(free: P.FreeParams, data, z, mode: str,
                       compute_dtype=compute_dtype, kernel=kernel)
     dt = core.W.dtype
     u = _fitc_solve(core, lam.to(dt) * b.to(dt))
-    alpha = _einsum_qnm_qn(core.W, u)
+    alpha = _einsum_qnm_qn(core.W, u).to(dt)
     # G = W^T Lam~^{-1} W = M - I; the variance reduction kernel is
     # G - G M^{-1} G = G M^{-1} (M = I + G commutes with G), symmetric PSD
     Minv = linalg.chol_inverse(core.LM)                        # f64
-    G = _wtw(core.W.mT / core.lam_t[:, None, :], core.W)
+    G = _nsum(core.W.mT / core.lam_t[:, None, :], core.W)
     inner = G @ Minv
     inner = 0.5 * (inner + inner.mT)
     return FitcAux(Lmm=core.Lmm, alpha=alpha, inner=inner, u=u)

@@ -73,19 +73,28 @@ def _woodbury_block(xblk, mblk, lam, b, z, lLmb, lLmb0, lnug, *, mesh,
     lam = lam.to(dt)
 
     WtLi = W.mT / lam_t[:, None, :] * mb[:, None, :]           # (q, m, nb)
-    G = mesh.all_reduce(sparse._wtw(WtLi, W), AXIS, grad=True)  # (q, m, m)
+    G = mesh.all_reduce(sparse._nsum(WtLi, W), AXIS, grad=True)  # (q, m, m)
     LM = linalg.cholesky(linalg.add_diag(G, 1.0))              # f64
 
     # u = (C_hat + Lam)^{-1} (Lam b): sparse._fitc_solve, two sums
     vi = lam * b / lam_t
     t = mesh.all_reduce(sparse._einsum_qnm_qn(W, vi), AXIS, grad=True)
-    s = linalg.cho_solve_vec(LM, t.to(_F64)).to(dt)
+    s64 = linalg.cho_solve_vec(LM, t.to(_F64))
+    s = s64.to(dt)
     u = (vi - sparse._einsum_qnm_qm(W, s) / lam_t) * mb
 
-    alpha = mesh.all_reduce(sparse._einsum_qnm_qn(W, u), AXIS, grad=True)
-    Cu = sparse._einsum_qnm_qm(W, alpha) + (lam_t - lam) * u
-    quad = mesh.all_reduce(torch.sum((b * Cu).to(_F64), dim=-1), AXIS,
-                           grad=True)
+    alpha = mesh.all_reduce(sparse._einsum_qnm_qn(W, u), AXIS,
+                            grad=True).to(dt)
+    if dt == _F64:
+        Cu = sparse._einsum_qnm_qm(W, alpha) + (lam_t - lam) * u
+        quad = mesh.all_reduce(torch.sum((b * Cu).to(_F64), dim=-1), AXIS,
+                               grad=True)
+    else:
+        # sparse._fitc_terms' one pass: u's rounding times C_hat drifts
+        lb = lam * b
+        quad = mesh.all_reduce(torch.sum((lb * b).to(_F64), dim=-1)
+                               - torch.sum((lb * vi).to(_F64), dim=-1),
+                               AXIS, grad=True) + torch.sum(t * s64, dim=-1)
     ld = (mesh.all_reduce(torch.sum(torch.log(lam_t.to(_F64)), dim=-1), AXIS,
                           grad=True)
           + linalg.chol_logdet(LM))

@@ -17,6 +17,9 @@ profiling, only wall-clock prints in example scripts).
   costs one read of torch's process-wide profiler flag.  ``span`` records
   a block as it runs; a hot path (the server's) ``stamp``s plain clock
   readings instead, made into spans only when ``spans()`` is read.
+  ``device_span`` (FITC's ``lcgp.fitc.*``) also times the block on the
+  card: CUDA events on the current stream, read as ``device_ns`` when
+  ``spans()`` is read.
 - ``log_compiles``: context manager that logs what the port "compiles"
   inside the block: each load or build of the kernel library
   (``ops/_build.build``) and each CUDA-graph capture of the prediction
@@ -56,7 +59,8 @@ class Span:
     the span that caused this one, ``request`` the id of the request it
     serves (the request span's own id), ``thread`` the native id of the
     thread it belongs to, ``attrs`` its integer attributes and ``note`` a
-    compile event's description.
+    compile event's description.  ``device_ns`` is the block's time on
+    the card's stream (a :func:`device_span` on CUDA), else None.
 
     While open it is mirrored as a ``record_function`` range where the
     profiler records this thread's host operators (by default only on the
@@ -64,13 +68,14 @@ class Span:
     trace.  Elsewhere the mirror would record nothing and cost ~26 us a span
     on the H100's host (PERF.md), so it is left out."""
     __slots__ = ('name', 'start', 'end', 'id', 'parent', 'request',
-                 'thread', 'attrs', 'note', '_mirror', '_sink')
+                 'thread', 'attrs', 'note', 'device_ns', '_mirror', '_sink')
 
     def __init__(self, name, attrs, note=None):
         self.name, self.attrs, self.note = name, attrs, note
         self.id = next(_ids)
         self.start = self.end = 0
         self.parent = self.request = self.thread = self._mirror = None
+        self.device_ns = None
         # a span still open at a new session ends in its own session
         self._sink = _session.spans
 
@@ -102,14 +107,38 @@ class Span:
                 f'{(self.end - self.start) * 1e-6:.4f} ms, {self.attrs})')
 
 
+class _DeviceSpan(Span):
+    """A span that also records a CUDA event on ``stream`` as it opens
+    and as it closes; :func:`spans` reads their distance into
+    ``device_ns``."""
+    __slots__ = ('_stream', '_start', '_end', '_timed')
+
+    def __init__(self, name, stream):
+        super().__init__(name, _NO_ATTRS)
+        self._stream, self._timed = stream, _session.timed
+
+    def __enter__(self):
+        super().__enter__()
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record(self._stream)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._end.record(self._stream)
+        self._timed.append(self)
+        return super().__exit__(exc_type, exc, tb)
+
+
 class _Session:
     """What one profiler session recorded: ``spans``, and ``stamped``, the
     hot paths' ``(expand, record)`` pairs, of which the first ``made`` are
-    already made into spans (in ``spans``)."""
-    __slots__ = ('spans', 'stamped', 'made', 'lock')
+    already made into spans (in ``spans``); ``timed``, the device spans
+    whose events are not yet read."""
+    __slots__ = ('spans', 'stamped', 'made', 'timed', 'lock')
 
     def __init__(self):
-        self.spans, self.stamped, self.made = [], [], 0
+        self.spans, self.stamped, self.made, self.timed = [], [], 0, []
         self.lock = threading.Lock()
 
 
@@ -178,13 +207,18 @@ def finished(name: str, start, end, thread, parent=None, request=None,
 
 def spans() -> list:
     """The spans of the latest profiler session, every thread's, in the
-    order they ended."""
+    order they ended; each device span's events read (waiting for them)
+    into its ``device_ns``."""
     ses = _session
     with ses.lock:
         stamped = ses.stamped[ses.made:]
         for expand, record in stamped:
             ses.spans.extend(expand(record))
         ses.made += len(stamped)
+        for s in ses.timed:
+            s._end.synchronize()
+            s.device_ns = round(s._start.elapsed_time(s._end) * 1e6)
+        ses.timed.clear()
         return sorted(ses.spans, key=lambda s: s.end)
 
 
@@ -224,6 +258,18 @@ def span(name: str):
     return Span(name, _NO_ATTRS)
 
 
+def device_span(name: str, device: torch.device):
+    """As :func:`span`, and on a CUDA ``device`` the block's time on its
+    current stream too (:class:`_DeviceSpan`): for a stage whose host time
+    says nothing of its device time.  Off, it reads one flag and allocates
+    nothing."""
+    if not _tap._is_profiler_enabled:
+        return _OFF
+    if device.type != 'cuda':
+        return Span(name, _NO_ATTRS)
+    return _DeviceSpan(name, torch.cuda.current_stream(device))
+
+
 def _merge_spans(path: str, recorded: list):
     """Add ``recorded`` to the Chrome trace at ``path``: each span a
     complete event on its thread, on the file's own clock."""
@@ -236,6 +282,8 @@ def _merge_spans(path: str, recorded: list):
         args = dict(id=s.id, parent=s.parent, request=s.request, **s.attrs)
         if s.note is not None:
             args['note'] = s.note
+        if s.device_ns is not None:
+            args['device_ns'] = s.device_ns
         events.append(dict(ph='X', cat='lcgp_span', name=s.name, pid=pid,
                            tid=s.thread, ts=(s.start - base) / 1e3,
                            dur=(s.end - s.start) / 1e3, args=args))

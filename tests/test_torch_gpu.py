@@ -1893,3 +1893,74 @@ def test_fast_fitc_at_config7s_field_within_the_references_error(dev):
                                 bounds=bounds)
     for k, bound in bounds.items():
         assert errs[k] <= bound, (k, errs[k], bound)
+
+
+def test_fast_fitc_along_a_fit_within_4x_the_references_recipe(dev):
+    """Config 7's field at 100,000 rows (``h100_bench``'s data for
+    ``configs/fitc_n400k_m512_lbfgsb.json``, rows ordered by one seed), a
+    'fast' scipy fit of 4 iterations: at the init and at each iterate the
+    model's 'fast' loss is within 4x the error of the benchmark
+    reference's recipe (f32 products, f64 block sums; the largest of its
+    errors up to that iterate) of the reference's f64 loss, per output
+    entry.  Through u (before the one pass) the loss left f64 by 3.4e-4
+    after one iteration at config 7 where the recipe stays under 6e-6."""
+    import json
+    import sys
+    from pathlib import Path
+    bench = Path(__file__).resolve().parents[1] / 'h100_bench'
+    sys.path[:0] = [str(bench)]
+    from hb import Context, build_model, data_for, inducing_points
+    from hb.manifest import Manifest
+    from reference import lcgp_ref as R
+    refit = Manifest().kind('refit')
+    cfg = {**json.loads((bench / 'configs/fitc_n400k_m512_lbfgsb.json')
+                        .read_text()), 'n': 100_000}
+    ctx = Context(name='pin', cell={}, cfg=cfg, traffic={}, limits={},
+                  kind=refit, seed=3000001899, seconds=0.0, traced=False,
+                  device=dev, t_start=0.0)
+    ctx.x, ctx.y = data_for(ctx)
+    model = build_model(ctx)
+    ctx.free0 = tuple(t.detach().clone() for t in model.free)
+    fit = refit.run_fit(ctx, model, 4)
+    assert fit['nit'] >= 3
+    del model
+    torch.cuda.empty_cache()
+    prob = R.prepare(ctx.x, ctx.y, int(cfg['model']['q']))
+    th0 = R.init_free(prob)
+    z = inducing_points(ctx, prob)
+    per = cfg['n'] * cfg['p']
+    ref64 = refit.lossfn(ctx, prob, z)
+    ref32 = refit.lossfn(ctx, prob, z, torch.float32, False)
+    recipe = 0.0
+    for it, (loss, vec) in sorted(fit['iters'].items()):
+        free = R.unflat(vec, th0)
+        want = ref64(free)[0]
+        recipe = max(recipe, abs(ref32(free)[0] - want) / per)
+        err = abs(loss - want) / per
+        assert err <= 4.0 * recipe, (it, err, recipe)
+
+
+def test_device_spans_time_the_stream(dev):
+    """A device span on the card reads its block's time on the stream
+    (CUDA events) when ``spans()`` is read; the host's time of an
+    asynchronous launch is far shorter."""
+    from torch.profiler import ProfilerActivity, profile
+    from lcgp_tpu_torch.utils import profiling
+    a = torch.randn((4096, 4096), device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.device_span('lcgp.test', dev):
+            for _ in range(8):
+                a = a @ a.mT / 64.0
+    (s,) = profiling.spans()
+    host_ns = s.end - s.start
+    assert s.device_ns is not None and s.device_ns > 0
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(8):
+        a = a @ a.mT / 64.0
+    end.record()
+    end.synchronize()
+    alone = start.elapsed_time(end) * 1e6
+    assert 0.5 * alone <= s.device_ns <= 2.0 * alone + 1e5, (s.device_ns,
+                                                             alone, host_ns)

@@ -360,3 +360,72 @@ class _Stall:
         self.taken.set()
         self.gate.wait(30)
         raise ValueError('an unreadable queue item')
+
+
+def _fitc_fast_model(n=1100, m=12):
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 1, (n, 2))
+    y = np.sin(4 * x[:, :1].T + np.linspace(0, 1, 4)[:, None]) \
+        + 0.05 * rng.standard_normal((4, n))
+    return LCGP(y=y, x=x, q=2, inducing=m, n_chunk=0, precision='fast',
+                device='cpu')
+
+
+def test_fitc_spans_only_while_profiling_once_per_stage_per_evaluation(
+        monkeypatch):
+    """``lcgp.fitc.panel`` once an evaluation (Knm and its solve);
+    ``lcgp.fitc.nsum`` once for each of an evaluation's five sums over n
+    (G and t, their backwards, the solve's gradient in Lmm), as many as
+    the helper's counters count; none with the profiler off."""
+    from lcgp_tpu_torch.models import sparse
+    m = _fitc_fast_model()
+    _profiled(lambda: None)
+
+    def refuse(*a, **k):
+        raise AssertionError('a span was made with the profiler off')
+    monkeypatch.setattr(profiling.Span, '__init__', refuse)
+    m.fit(method='scipy', maxiter=2)
+    assert profiling.spans() == []
+    monkeypatch.undo()
+
+    m = _fitc_fast_model()
+    before = sparse._nsum.blocked + sparse._nsum.backward
+    _, spans = _profiled(lambda: m.fit(method='scipy', maxiter=3))
+    nfev = m._fit_result.nfev
+    panel = _named(spans, 'lcgp.fitc.panel')
+    nsum = _named(spans, 'lcgp.fitc.nsum')
+    assert len(panel) == nfev > 0
+    assert len(nsum) == 5 * nfev == (sparse._nsum.blocked
+                                     + sparse._nsum.backward - before)
+    # on the CPU a device span is a host span: no device time
+    assert all(s.device_ns is None and s.end >= s.start
+               for s in panel + nsum)
+    evals = {s.id for s in _named(spans, 'lcgp.fit.eval')}
+    assert {s.parent for s in panel} <= evals
+
+
+def test_a_device_span_off_allocates_nothing():
+    cpu = torch.device('cpu')
+
+    def bare(items):
+        for _ in items:
+            pass
+
+    def spans_off(items):
+        for _ in items:
+            with profiling.device_span('lcgp.test', cpu):
+                pass
+    items = [None] * 20000
+    growth = {}
+    for loop in (bare, spans_off):
+        loop(items[:10])
+        tracemalloc.start()
+        try:
+            before = tracemalloc.get_traced_memory()[0]
+            tracemalloc.reset_peak()
+            loop(items)
+            now, peak = tracemalloc.get_traced_memory()
+        finally:
+            tracemalloc.stop()
+        growth[loop.__name__] = (now - before, peak - before)
+    assert growth['spans_off'] == growth['bare'], growth

@@ -4,6 +4,7 @@ yardstick that ``chip_smoke.FITC7_FAST_BOUNDS`` and the 'fast' FITC tests
 hold the port to (4x this error).
 
     PYTHONPATH=. python tools/fitc7_reference_errors.py 100000
+    PYTHONPATH=. python tools/fitc7_reference_errors.py 100000 --along 10
 
 Config 7 is ``benchmarks/run_configs.py``'s (d=2, p=20, q=4, m=512); the
 first n rows of its field, its inducing points as
@@ -19,8 +20,15 @@ component's 'fast' loss and gradient alone (one column of phi and D, that
 component's kernel parameters: the batched loss's f32 work for it); the
 terms without the Gram, which every component's loss carries once; the
 f64 predictions; the 'fast' predictions.  A part peaks at ~4.5 GB at
-n=100,000 and ~38 KB more a row.  Imports JAX and lcgp_tpu: it measures
-the reference, not the port.
+n=100,000 and ~38 KB more a row.
+
+``--along K``: past the init, in one process of its own.  lcgp_tpu's f64
+model (streamed, n_chunk 4096) fits K iterations of scipy L-BFGS-B from
+the init; at the init and at each iterate its callback hands over, the
+un-chunked 'fast' loss against the f64 loss: per output entry (n p of
+them) and relative.  Loss only, so one process holds one 'fast' panel.
+
+Imports JAX and lcgp_tpu: it measures the reference, not the port.
 """
 from __future__ import annotations
 
@@ -89,6 +97,34 @@ def part(n, which):
                 grads=[np.asarray(a, dtype=np.float64).tolist() for a in g])
 
 
+def along(n, iters):
+    """lcgp_tpu's 'fast' loss against its f64 loss at the init and along
+    an f64 fit of ``iters`` scipy L-BFGS-B iterations: one dict a point."""
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    jax.config.update('jax_enable_x64', True)
+    import lcgp_tpu
+    from lcgp_tpu.models import sparse as JS
+    x, y, _, z = field(n)
+    m = lcgp_tpu.LCGP(y, x, q=4, inducing=z, n_chunk=4096)
+    fast = lcgp_tpu.LCGP(y, x, q=4, inducing=z, n_chunk=0, precision='fast')
+    points = [(0, m._free)]
+    m.fit(method='scipy', maxiter=iters,
+          callback=lambda step, loss, free: points.append((int(step), free)))
+    per = x.shape[0] * y.shape[0]
+    out = []
+    for it, free in points:
+        l64 = float(JS.neglpost_full_fitc(free, m._data, m._z,
+                                          kernel=m.kernel, n_chunk=4096))
+        l32 = float(JS.neglpost_full_fitc(
+            free, fast._data, fast._z, compute_dtype=fast._compute_dtype,
+            kernel=fast.kernel, n_chunk=None))
+        out.append(dict(iterate=it, loss_f64=l64,
+                        per_entry=(l32 - l64) / per,
+                        relative=abs(l32 - l64) / abs(l64)))
+    return out
+
+
 def errors(n):
     """lcgp_tpu's 'fast' loss, gradient leaves and 64-point outputs against
     its f64 at n rows of config 7's field: {name: error}."""
@@ -123,6 +159,9 @@ if __name__ == '__main__':
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
     if '--part' in sys.argv:
         print(json.dumps(part(n, sys.argv[sys.argv.index('--part') + 1])))
+    elif '--along' in sys.argv:
+        for row in along(n, int(sys.argv[sys.argv.index('--along') + 1])):
+            print(json.dumps(row), flush=True)
     else:
         for k, v in errors(n).items():
             print(f'{k}: {v:.4e}', flush=True)

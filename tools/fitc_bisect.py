@@ -6,6 +6,7 @@ times before and after G's blocked sum.
     python3 tools/fitc_bisect.py                 # the n scan and G's stage
     python3 tools/fitc_bisect.py --losses        # f64 losses as hex floats
     python3 tools/fitc_bisect.py --times [--package DIR]
+    python3 tools/fitc_bisect.py --along [--n ...] [--seed S] [--maxiter K]
 
 Config 7 is ``benchmarks/run_configs.py``'s (n=400,000, m=512, d=2, p=20,
 q=4), built as ``chip_smoke.py``'s phase 14 builds it
@@ -19,7 +20,7 @@ the standardized design as inducing points, un-chunked), at the init.
    ``sparse._panel`` in f32 on the card, in f32 on the CPU and in f64,
    each f32 one against the f64 one; then G from the card's f32 W and
    Lam~: one f32 GEMM on the card and on the CPU, and
-   ``sparse._blocked_wtw`` over blocks of B rows, each against the f64
+   ``sparse._blocked_nsum`` over blocks of B rows, each against the f64
    product of the same inputs, with its device ms and the 'fast' loss it
    gives (the model's ``_fitc_terms`` with LM = chol(I + G)) against the
    f64 model's loss.
@@ -30,6 +31,17 @@ the standardized design as inducing points, un-chunked), at the init.
    8, with ``lcgp_tpu_torch`` from this checkout or from ``--package DIR``
    (another checkout, e.g. the parent commit); run it for both in turns
    in one call to compare them.
+5. ``--along``: the loss's rules along a fit.  For each n, config 7's
+   field as ``h100_bench`` makes it (``configs/fitc_n400k_m512.json`` at
+   n rows, the rows ordered by ``--seed``), a 'fast' scipy L-BFGS-B fit
+   of ``--maxiter`` iterations; at the init and every iterate, per output
+   entry against the benchmark's f64 reference: the reference in f32 with
+   f64 block sums (``ref32``, its recipe), the model at 'high', and the
+   'fast' model with its quadratic term by three rules: ``single`` (u by
+   Woodbury, Cu = W W^T u, each n-length sum one f32 product; G blocked),
+   ``nsum`` (the same through ``sparse._nsum``) and ``onepass`` (the
+   model's own, ``sparse._fitc_terms``: quad = sum lam b^2 - sum lam b vi
+   + t^T M^-1 t, the reference's recipe).
 
 Prints one JSON line at the end.  Needs a card; imports nothing of JAX.
 """
@@ -139,11 +151,10 @@ def g_stage(dev, x, y, z_orig, n):
             core = sparse.FitcCore(Lmm=Lmm.to(f32), W=W, lam_t=lt,
                                    LM=linalg.cholesky(linalg.add_diag(G,
                                                                       1.0)))
-            _, quad, ld = sparse._fitc_terms(core, lam, b)
-            return quad, ld
+            return sparse._fitc_terms(core, lam, b)
         # the model's own G gives its own 'fast' loss; another G moves the
         # loss by its terms' difference
-        quad0, ld0 = terms(sparse._wtw(A, W))
+        quad0, ld0 = terms(sparse._nsum(A, W))
 
         def loss_rel(G):
             quad, ld = terms(G)
@@ -155,7 +166,7 @@ def g_stage(dev, x, y, z_orig, n):
               "one GEMM, CPU": (lambda: A.cpu() @ W.cpu(), False)}
         for B in G_BLOCKS:
             gs[f"blocks of {B}"] = (
-                lambda B=B: sparse._blocked_wtw(A, W, B), True)
+                lambda B=B: sparse._blocked_nsum(A, W, B), True)
         out["G"] = {}
         for name, (fn, on_card) in gs.items():
             G = fn().double().to(dev)
@@ -219,6 +230,90 @@ def times(dev):
     return out
 
 
+def _terms_u(core, lam, b, nsum):
+    """The quadratic term through u = (C_hat + Lam)^-1 Lam b and
+    C_hat u = W W^T u + (Lam~ - Lam) u, lcgp_tpu's path, with each W^T v
+    one f32 product or, with ``nsum``, ``sparse._einsum_qnm_qn``."""
+    import torch
+    from lcgp_tpu_torch.models import sparse
+    from lcgp_tpu_torch.ops import linalg
+    dt = core.W.dtype
+
+    def wtv(v):
+        return (sparse._einsum_qnm_qn(core.W, v).to(dt) if nsum
+                else torch.einsum("qnm,qn->qm", core.W, v))
+    b = b.to(dt)
+    vi = lam.to(dt) * b / core.lam_t
+    s = linalg.cho_solve_vec(core.LM, wtv(vi).to(core.LM.dtype)).to(dt)
+    u = vi - torch.einsum("qnm,qm->qn", core.W, s) / core.lam_t
+    Cu = (torch.einsum("qnm,qm->qn", core.W, wtv(u))
+          + (core.lam_t - lam.to(dt)) * u)
+    return (torch.sum((b * Cu).to(torch.float64), dim=-1),
+            sparse._fitc_logdet(core))
+
+
+def along(n_list, seed, maxiter, device="cuda:0"):
+    """The loss's rules along a 'fast' fit (see the module's docstring)."""
+    import torch
+    sys.path[:0] = [str(ROOT / "h100_bench")]
+    from hb import Context, build_model, check, data_for, inducing_points
+    from hb.manifest import Manifest
+    from reference import lcgp_ref as R
+    from lcgp_tpu_torch.models import sparse
+    from lcgp_tpu_torch.models.params import FreeParams
+    refit = Manifest().kind("refit")
+    with open(ROOT / "h100_bench/configs/fitc_n400k_m512.json") as f:
+        base = json.load(f)
+    rules = {"single": lambda *a: _terms_u(*a, nsum=False),
+             "nsum": lambda *a: _terms_u(*a, nsum=True),
+             "onepass": sparse._fitc_terms}
+    live = sparse._fitc_terms
+    out = {}
+    for n in n_list:
+        cfg = {**base, "n": n, "fit": {"method": "scipy"}}
+        ctx = Context(name="along", cell={}, cfg=cfg, traffic={}, limits={},
+                      kind=refit, seed=seed, seconds=0.0, traced=False,
+                      device=torch.device(device), t_start=0.0)
+        ctx.x, ctx.y = data_for(ctx)
+        model = build_model(ctx)
+        ctx.free0 = tuple(t.detach().clone() for t in model.free)
+        fit = refit.run_fit(ctx, model, maxiter)
+        say(f"  n={n}: {fit['nit']} iterations, {fit['nfev']} evaluations")
+        high = build_model(ctx, precision="high")
+        prob = R.prepare(ctx.x, ctx.y, int(cfg["model"]["q"]))
+        th0 = R.init_free(prob)
+        z = inducing_points(ctx, prob)
+        per = n * int(cfg["p"])
+        ref64 = refit.lossfn(ctx, prob, z)
+        ref32 = check.failing_as_inf(
+            refit.lossfn(ctx, prob, z, torch.float32, False))
+        rows = []
+        points = [(0, R.flat(th0).cpu().numpy())] + [
+            (k, v[1]) for k, v in sorted(fit["iters"].items())]
+        for it, vec in points:
+            free = R.unflat(vec, th0)
+            leaves = FreeParams(*(free[k] for k in R.LEAVES))
+            l64 = ref64(free)[0]
+            row = {"iterate": it, "ref32": (ref32(free)[0] - l64) / per}
+            with torch.no_grad():
+                high.free = leaves
+                row["high"] = (float(high.loss()) - l64) / per
+                model.free = leaves
+                for name, fn in rules.items():
+                    sparse._fitc_terms = fn
+                    try:
+                        row[name] = (float(model.loss()) - l64) / per
+                    finally:
+                        sparse._fitc_terms = live
+            say("    " + json.dumps(row))
+            rows.append(row)
+        out[n] = rows
+        del model, high
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, nargs="+",
@@ -228,6 +323,10 @@ def main(argv=None):
                          "config 7's 'fast' loss, as exact hex floats")
     ap.add_argument("--times", action="store_true",
                     help="only time 'fast' FITC at configs 6, 7 and 8")
+    ap.add_argument("--along", action="store_true",
+                    help="only the loss's rules along a 'fast' fit")
+    ap.add_argument("--seed", type=int, default=3000000051)
+    ap.add_argument("--maxiter", type=int, default=10)
     ap.add_argument("--package", metavar="DIR",
                     help="import lcgp_tpu_torch from the checkout at DIR")
     args = ap.parse_args(argv)
@@ -246,6 +345,9 @@ def main(argv=None):
         return 0
     if args.times:
         print(json.dumps(times(dev)))
+        return 0
+    if args.along:
+        print(json.dumps(along(args.n, args.seed, args.maxiter)))
         return 0
     x, y, x0, z_orig = cs.fitc7_inputs()
     res = {"scan": {n: scan(dev, x, y, x0, z_orig, n) for n in args.n}}
