@@ -20,12 +20,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import lcgp_tpu
 from lcgp_tpu import datasets as jdatasets
 from lcgp_tpu import evaluation as jev
 from lcgp_tpu.runner import LCGPRun as JRun
 from lcgp_tpu_torch.parallel import WorkerGroup
+
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
 
 EXAMPLES = Path(__file__).resolve().parents[1] / 'examples'
 PORTED = ('check_notebook_fresh', 'rep_1d_illustration',

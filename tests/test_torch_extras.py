@@ -29,6 +29,8 @@ from lcgp_tpu_torch import test as run_port_tests
 from lcgp_tpu_torch.ops import _build
 from lcgp_tpu_torch.utils import profiling
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 FIT_RTOL = 1e-8
 FIT_PRED_TOL = dict(rtol=1e-8, atol=1e-12)
 PRED_TOL = dict(rtol=1e-9, atol=1e-12)

@@ -27,6 +27,8 @@ from lcgp_tpu_torch.fit import (PlateauTracker, minimize_adam,
 from lcgp_tpu_torch.fit._flat import Flattener
 from lcgp_tpu_torch.models import params as TP
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 SCIPY_RTOL = 1e-8
 AUTO_RTOL = 1e-6
 ADAM_RTOL = 1e-9

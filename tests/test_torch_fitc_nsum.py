@@ -15,6 +15,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from lcgp_tpu_torch import LCGP
 from lcgp_tpu_torch.models import sparse
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 F32, F64 = torch.float32, torch.float64
 N_RAGGED = 3 * sparse.G_BLOCK + 17
 

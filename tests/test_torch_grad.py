@@ -31,6 +31,8 @@ from lcgp_tpu_torch.models import params as TP
 from lcgp_tpu_torch.ops import linalg as TL
 from lcgp_tpu_torch.ops import matern as TM
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 VJP_BOUND = 1e-12
 GRAD_RTOL = 1e-9
 LOSS_RTOL = 1e-10

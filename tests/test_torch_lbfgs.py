@@ -26,6 +26,8 @@ from lcgp_tpu_torch import convert
 from lcgp_tpu_torch.fit import DeviceFitResult, minimize_lbfgs_jax
 from lcgp_tpu_torch.models import params as TP
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 ITERATE_ATOL = 1e-13
 LOSS_RTOL = 1e-8
 

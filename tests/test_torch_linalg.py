@@ -12,6 +12,8 @@ import jax.numpy as jnp
 from lcgp_tpu.ops import linalg as JL
 from lcgp_tpu_torch.ops import linalg as TL
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 TOL = dict(rtol=1e-11, atol=1e-13)
 
 

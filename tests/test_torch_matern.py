@@ -16,6 +16,8 @@ from lcgp_tpu.ops import matern as JM
 from lcgp_tpu_torch.ops import gram as TG
 from lcgp_tpu_torch.ops import matern as TM
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 TOL = dict(rtol=1e-13, atol=1e-15)
 
 

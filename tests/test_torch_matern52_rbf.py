@@ -43,6 +43,8 @@ from lcgp_tpu_torch.ops import matern52 as TM5
 from lcgp_tpu_torch.ops import rbf as TR
 from lcgp_tpu_torch.ops.launch import fused_cotangent
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 KINDS = ['matern52', 'rbf']
 GRAM_TOL = {torch.float64: dict(rtol=1e-12, atol=1e-14),
             torch.float32: dict(rtol=1e-5, atol=1e-6)}

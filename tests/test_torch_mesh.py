@@ -30,6 +30,8 @@ from lcgp_tpu.models import params as P
 from lcgp_tpu_torch import parallel
 from lcgp_tpu_torch.parallel import WorkerGroup, dryrun, nshard, tasks
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 LOSS_RTOL = 1e-10
 GRAD_TOL = dict(rtol=1e-8, atol=1e-10)
 

@@ -34,6 +34,8 @@ from lcgp_tpu.ops import mixed as JM
 from lcgp_tpu_torch.ops import linalg as TL
 from lcgp_tpu_torch.ops import mixed as TM
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 EPS32 = float(np.finfo(np.float32).eps)
 EPS64 = float(np.finfo(np.float64).eps)
 

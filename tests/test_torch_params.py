@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from lcgp_tpu.models import params as JP
 from lcgp_tpu_torch.models import params as TP
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 TOL = dict(rtol=1e-15, atol=1e-15)
 # The SoftClip inverse subtracts log1p(-exp(.)) terms that nearly cancel
 # near the clip ends; XLA's and PyTorch's exp/log1p differ by an ulp, and

@@ -34,6 +34,8 @@ from lcgp_tpu_torch.models import likelihood as TLik
 from lcgp_tpu_torch.models import params as TP
 from lcgp_tpu_torch.ops.gram import gram_factor_target
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 EPS32 = float(np.finfo(np.float32).eps)
 MIXED_LOSS_RTOL = 1e-9
 MIXED_PRED_TOL = dict(rtol=1e-7, atol=1e-9)

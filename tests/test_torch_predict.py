@@ -21,6 +21,8 @@ from lcgp_tpu_torch.models import predict as TPred
 from lcgp_tpu_torch.ops import matern as TM
 import oracle
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 LOSS_RTOL = 1e-10
 PRED_TOL = dict(rtol=1e-9, atol=1e-12)
 

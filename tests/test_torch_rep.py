@@ -49,6 +49,8 @@ from lcgp_tpu_torch.ops import linalg as TL
 from lcgp_tpu_torch.ops import matern as TM
 import oracle
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_RTOL = 1e-10
 GRAD_RTOL = 1e-10

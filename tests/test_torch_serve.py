@@ -34,6 +34,8 @@ from lcgp_tpu_torch import LCGP, convert, datasets
 from lcgp_tpu_torch import serve as serve_mod
 from lcgp_tpu_torch.serve import PredictServer
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 SRV_RTOL = 1e-10
 HTTP_RTOL = 1e-8
 PRED_TOL = dict(rtol=1e-9, atol=1e-12)

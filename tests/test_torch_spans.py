@@ -25,6 +25,8 @@ from lcgp_tpu_torch import serve
 from lcgp_tpu_torch.serve import PredictServer
 from lcgp_tpu_torch.utils import profiling
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 
 def _model(seed=0, n=20, d=2, p=3, q=2):
     rng = np.random.default_rng(seed)

@@ -44,6 +44,8 @@ from lcgp_tpu_torch.ops.gram import gram_stack
 from lcgp_tpu_torch.ops.launch import FAMILIES
 from lcgp_tpu_torch.utils.diagnostics import health_check
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 LOSS_RTOL = 1e-9
 GRAD_RTOL = 1e-8
 AUX_TOL = dict(rtol=1e-9, atol=1e-12)

@@ -13,6 +13,8 @@ from lcgp_tpu.models import transforms as JT
 from lcgp_tpu_torch.models import basis as TB
 from lcgp_tpu_torch.models import transforms as TT
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 TOL = dict(rtol=1e-15, atol=1e-15)
 
 

@@ -26,6 +26,8 @@ import jax.numpy as jnp
 from lcgp_tpu.ops.gram import gram_stack
 from lcgp_tpu_torch.ops.launch import FAMILIES
 
+torch.set_num_threads(1)  # pytest -n workers share the host's cores
+
 BOUND = 1e-10
 
 
