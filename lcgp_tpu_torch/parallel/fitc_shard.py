@@ -45,8 +45,8 @@ from ..models import sparse
 from ..ops import linalg
 from .group import Mesh
 from .nshard import (AXIS, COMP, _comps, _gather_full, _gather_rows,
-                     _n_size, _pad_q, _pad_q_params, _pad_to, _q_pad, _qax,
-                     _rows)
+                     _n_pad, _n_size, _pad_q, _pad_q_params, _pad_to,
+                     _padded_inputs, _q_pad, _qax, _rows)
 
 _F64 = torch.float64
 
@@ -104,12 +104,9 @@ def _woodbury_block(xblk, mblk, lam, b, z, lLmb, lLmb0, lnug, *, mesh,
 def _pad_inputs(data, mesh: Mesh):
     """xs and its row mask padded to a multiple of the 'n' size:
     (xs, mask, n, n_pad)."""
-    ndev = _n_size(mesh)
     n = data.xs.shape[0]
-    n_pad = -(-n // ndev) * ndev
-    xs = _pad_to(data.xs, n_pad, axis=0, fill=0.5)
-    mask = _pad_to(data.xs.new_ones((n,)), n_pad, axis=0)
-    return xs, mask, n, n_pad
+    n_pad = _n_pad(mesh, n)
+    return (*_padded_inputs(data.xs, n_pad), n, n_pad)
 
 
 def _pad_q_fitc(mesh, phi, D, lLmb, lLmb0, lnug):

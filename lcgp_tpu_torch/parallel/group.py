@@ -14,10 +14,11 @@ collective.
   and names what to pass.
 - :class:`Mesh` is a named ``DeviceMesh`` over the first ranks of the world
   with the rank's ``torch.device`` and the collectives the parallel modules
-  use along an axis: all-reduce, all-gather, broadcast from an owner, each
-  also in a differentiable form (:meth:`Mesh.all_reduce` and the others
-  with ``grad=True``) with the backward rules of
-  ``torch.distributed.nn.functional``.  A gloo group is a host transport,
+  use along an axis: all-reduce, all-gather and broadcast from an owner,
+  the first two also in a differentiable form (``grad=True``) with the
+  backward rules of ``torch.distributed.nn.functional``, and
+  :meth:`Mesh.enter`/:meth:`Mesh.leave` around code that differentiates
+  through them.  A gloo group is a host transport,
   so under gloo a CUDA tensor is staged through the host inside the
   collective (``.cpu()``, the collective, the copy back), the same on every
   torch build, and ``Mesh.staged_bytes`` counts the bytes copied each way.
@@ -232,11 +233,9 @@ class Mesh:
             return torch.stack(outs)
         return self._host_run(t, run, n_out=size)
 
-    def broadcast(self, t, axis: str, owner: int, grad: bool = False):
+    def broadcast(self, t, axis: str, owner: int):
         """The owner's t (index ``owner`` along ``axis``) on every rank of
         the axis; the other ranks pass a tensor of its shape and dtype."""
-        if grad:
-            return _Broadcast.apply(self, axis, owner, t)
         self._member('broadcast')
         if axis not in self.shape:
             return t.clone()
@@ -286,8 +285,10 @@ class Mesh:
             self.all_reduce(one, axis)
 
 
-# The differentiable forms, with torch.distributed.nn.functional's backward
-# rules.  Each is one autograd node on the tensor's device that stages
+# The differentiable all-reduce and all-gather, with
+# torch.distributed.nn.functional's backward rules, and the enter/leave
+# nodes around them (``mesh.py`` and ``fitc_shard.py`` differentiate
+# through these).  Each is one autograd node on the tensor's device that stages
 # internally, so the autograd engine runs every rank's collectives on one
 # thread in the graph's order: a host copy recorded by autograd would be a
 # node on the CPU queue, and the ranks could then order their collectives
@@ -314,21 +315,6 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         mesh, axis = ctx.mesh, ctx.axis
         return None, None, mesh.all_reduce(g, axis)[mesh.index(axis)]
-
-
-class _Broadcast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, mesh, axis, owner, t):
-        ctx.mesh, ctx.axis, ctx.owner = mesh, axis, owner
-        return mesh.broadcast(t, axis, owner)
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh, axis = ctx.mesh, ctx.axis
-        s = mesh.all_reduce(g, axis)
-        if mesh.index(axis) != ctx.owner:
-            s = torch.zeros_like(s)
-        return None, None, None, s
 
 
 class _Enter(torch.autograd.Function):

@@ -153,67 +153,44 @@ def _comps(mesh: Mesh, qp: int) -> slice:
     return slice(c * qc, (c + 1) * qc)
 
 
-def _sel(cond: bool, a, b, grad: bool):
-    """``a`` where cond, else ``b``.  Under ``grad`` a select node, so that
-    both operands, and every collective before them, stay in every rank's
-    autograd graph alike: a rank whose graph lacked a collective's node
-    would not join that collective in the backward."""
-    if grad:
-        return torch.where(torch.tensor(cond, device=a.device), a, b)
-    return a if cond else b
-
-
 # ---------------------------------------------------------------------------
 # Distributed factorization / substitution (the per-rank bodies).
 # Layout: (q, nb, n) is this rank's block of rows of a (q, n, n) stack and
 # (q, nb, m) its rows of (q, n, m) right-hand sides; nb * ndev == n (the
-# callers pad).  ``grad`` keeps the computation differentiable, with every
-# rank running every step (the reference's SPMD form); without it a rank
-# skips what its rows do not need, and works in place.
+# callers pad).  A rank skips the steps its rows do not need and works in
+# place; the losses' backward is hand-written, so no step is differentiated.
 # ---------------------------------------------------------------------------
 
-def _dist_cholesky_local(Ablk, mesh: Mesh, grad: bool = False):
+def _dist_cholesky_local(Ablk, mesh: Mesh):
     """This rank's rows of L, A = L L^T, from its (q, nb, n) rows of A.
-    Without ``grad`` Ablk is overwritten by the factor."""
+    Ablk is overwritten by the factor."""
     q, nb, n = Ablk.shape
     ndev, idx = _n_size(mesh), mesh.index(AXIS)
     if nb * ndev != n:
         raise ValueError(f'{nb} rows x {ndev} ranks != n={n}')
-    blocks = []
     for k in range(ndev):
         cols = slice(k * nb, (k + 1) * nb)
         # the (updated) diagonal block, from its owner
-        Lkk = linalg.cholesky(mesh.broadcast(Ablk[:, :, cols], AXIS, k,
-                                             grad=grad))
-        Lik = None
-        if grad or idx > k:
+        Lkk = linalg.cholesky(mesh.broadcast(Ablk[:, :, cols], AXIS, k))
+        if idx == k:
+            blk = Lkk
+        elif idx > k:
             # my panel block L_ik = A_ik Lkk^{-T}
-            Lik = torch.linalg.solve_triangular(Lkk.mT, Ablk[:, :, cols],
+            blk = torch.linalg.solve_triangular(Lkk.mT, Ablk[:, :, cols],
                                                 upper=True, left=False)
-        zero = torch.zeros_like(Lkk)
-        blk = _sel(idx == k, Lkk, _sel(idx > k, Lik, zero, grad), grad)
-        if grad:
-            blocks.append(blk)
         else:
-            Ablk[:, :, cols] = blk
+            blk = torch.zeros_like(Lkk)
+        Ablk[:, :, cols] = blk
         if k + 1 < ndev:
-            panel = mesh.all_gather(blk, AXIS, grad=grad)   # (ndev,q,nb,nb)
-            if grad or idx > k:
+            panel = mesh.all_gather(blk, AXIS)             # (ndev,q,nb,nb)
+            if idx > k:
                 below = panel[k + 1:].transpose(0, 1).reshape(
                     q, (ndev - 1 - k) * nb, nb)
-                upd = blk @ below.mT
-                rest = slice((k + 1) * nb, n)
-                if grad:
-                    upd = _sel(idx > k, upd, torch.zeros_like(upd), grad)
-                    Ablk = torch.cat([Ablk[:, :, :rest.start],
-                                      Ablk[:, :, rest] - upd], dim=-1)
-                else:
-                    Ablk[:, :, rest] -= upd
-    return torch.cat(blocks, dim=-1) if grad else Ablk
+                Ablk[:, :, (k + 1) * nb:] -= blk @ below.mT
+    return Ablk
 
 
-def _dist_solve_rows_local(Lblk, Bblk, mesh: Mesh, transpose: bool = False,
-                           grad: bool = False):
+def _dist_solve_rows_local(Lblk, Bblk, mesh: Mesh, transpose: bool = False):
     """L Y = B (``transpose`` False) or L^T Y = B, with B's rows
     distributed: Bblk (q, nb, m) is this rank's; returns its rows of Y.
 
@@ -221,9 +198,7 @@ def _dist_solve_rows_local(Lblk, Bblk, mesh: Mesh, transpose: bool = False,
     its rows of B less what the earlier steps sent, and broadcasts its rows
     of Y to the ranks below it.  Back substitution: each step all-reduces
     ``sum_{j>k} L_jk^T x_j`` (rank j holds L's block (j, k)) and its owner
-    solves.  Under ``grad``, :func:`_dist_solve_rows_uniform`."""
-    if grad:
-        return _dist_solve_rows_uniform(Lblk, Bblk, mesh, transpose)
+    solves."""
     nb = Lblk.shape[1]
     ndev, idx = _n_size(mesh), mesh.index(AXIS)
     out = acc = None
@@ -253,48 +228,15 @@ def _dist_solve_rows_local(Lblk, Bblk, mesh: Mesh, transpose: bool = False,
     return out
 
 
-def _dist_solve_rows_uniform(Lblk, Bblk, mesh: Mesh, transpose: bool):
-    """:func:`_dist_solve_rows_local` in the reference's SPMD form, which
-    autograd can follow: every rank runs every step (each step's diagonal
-    block and right-hand side broadcast from its owner) and keeps its own
-    rows by a select, so every rank's graph holds the same collectives."""
-    nb = Lblk.shape[1]
-    ndev, idx = _n_size(mesh), mesh.index(AXIS)
-    if not transpose:
-        y = acc = torch.zeros_like(Bblk)
-        for k in range(ndev):
-            cols = slice(k * nb, (k + 1) * nb)
-            diag = mesh.broadcast(Lblk[:, :, cols], AXIS, k, grad=True)
-            rhs = mesh.broadcast(Bblk - acc, AXIS, k, grad=True)
-            yk = torch.linalg.solve_triangular(diag, rhs, upper=False)
-            y = _sel(idx == k, yk, y, True)
-            if k + 1 < ndev:
-                step = Lblk[:, :, cols] @ yk
-                acc = acc + _sel(idx > k, step, torch.zeros_like(step), True)
-        return y
-    x = torch.zeros_like(Bblk)
-    for k in reversed(range(ndev)):
-        cols = slice(k * nb, (k + 1) * nb)
-        contrib = _sel(idx > k, Lblk[:, :, cols].mT @ x,
-                       torch.zeros_like(Bblk), True)
-        s = mesh.all_reduce(contrib, AXIS, grad=True)
-        diag = mesh.broadcast(Lblk[:, :, cols], AXIS, k, grad=True)
-        rhs = mesh.broadcast(Bblk, AXIS, k, grad=True) - s
-        xk = torch.linalg.solve_triangular(diag.mT, rhs, upper=True)
-        x = _sel(idx == k, xk, x, True)
-    return x
-
-
-def _dist_cho_solve_rows_local(Lblk, Bblk, mesh: Mesh, grad: bool = False):
+def _dist_cho_solve_rows_local(Lblk, Bblk, mesh: Mesh):
     """(L L^T)^{-1} B with B's rows distributed; (q, nb, m) local."""
-    y = _dist_solve_rows_local(Lblk, Bblk, mesh, grad=grad)
-    return _dist_solve_rows_local(Lblk, y, mesh, transpose=True, grad=grad)
+    y = _dist_solve_rows_local(Lblk, Bblk, mesh)
+    return _dist_solve_rows_local(Lblk, y, mesh, transpose=True)
 
 
-def _dist_cho_solve_vec_local(Lblk, bblk, mesh: Mesh, grad: bool = False):
+def _dist_cho_solve_vec_local(Lblk, bblk, mesh: Mesh):
     """(L L^T)^{-1} b with the distributed factor; b's rows (q, nb)."""
-    return _dist_cho_solve_rows_local(Lblk, bblk[..., None], mesh,
-                                      grad=grad)[..., 0]
+    return _dist_cho_solve_rows_local(Lblk, bblk[..., None], mesh)[..., 0]
 
 
 def _eye_rows(idx: int, nb: int, n: int, dtype, device):
@@ -316,7 +258,7 @@ def _dist_chol_inverse_rows_local(Lblk, mesh: Mesh):
                                       mesh).contiguous()
 
 
-def _dist_chol_logdet_local(Lblk, mesh: Mesh, grad: bool = False):
+def _dist_chol_logdet_local(Lblk, mesh: Mesh):
     """logdet(A) = 2 sum log diag(L); the diagonal lives in the owner
     rows.  The n-length log-sum accumulates in f64 even for f32 factors."""
     nb = Lblk.shape[1]
@@ -324,7 +266,7 @@ def _dist_chol_logdet_local(Lblk, mesh: Mesh, grad: bool = False):
     d = torch.diagonal(Lblk[:, :, idx * nb:(idx + 1) * nb], dim1=-2,
                        dim2=-1)
     local = 2.0 * torch.sum(torch.log(d).to(torch.float64), dim=-1)
-    return mesh.all_reduce(local, AXIS, grad=grad)
+    return mesh.all_reduce(local, AXIS)
 
 
 def _gather_rows(mesh: Mesh, blk, axis: str = AXIS):
@@ -392,38 +334,28 @@ def gather_rows(mesh: Mesh, blk):
 # ---------------------------------------------------------------------------
 
 def _local_gram_rows(xs, mask, lLmb, lLmb0, lnug, *, mesh, kernel,
-                     compute_dtype, grad=False):
+                     compute_dtype):
     """This rank's (q, nb, n) rows of the masked, nugget-included Gram
     stack: the kind's Gram kernel across (my rows, all points), then
     ``amp * eta`` on my rows' global diagonal, which reproduces the
     same-point stack ``amp ((1 - eta) C0 + eta I)``, then padded rows and
     columns zeroed.  The (1 - eta) shrink comes from the cross mode, so
     the diagonal may differ from the square kernel's in its last bit."""
-    n = xs.shape[0]
-    nb = n // _n_size(mesh)
-    idx = mesh.index(AXIS)
+    nb = xs.shape[0] // _n_size(mesh)
     rows = _rows(mesh, nb)
     C = gram_stack(xs[rows], xs, lLmb, lLmb0, lnug, same=False,
                    compute_dtype=compute_dtype, kind=kernel)   # (q, nb, n)
     eta = (lnug / (1.0 + lnug)).to(C.dtype)
     amp = lLmb0.to(C.dtype)
     mrow, mcol = mask[rows].to(C.dtype), mask.to(C.dtype)
-    if grad:
-        eye = _eye_rows(idx, nb, n, C.dtype, C.device)
-        C = C + (amp * eta)[:, None, None] * eye
-        return C * mrow[None, :, None] * mcol[None, None, :]
     C[:, :, rows].diagonal(dim1=-2, dim2=-1).add_((amp * eta)[:, None])
     return C.mul_(mrow[None, :, None] * mcol[None, None, :])
 
 
-def _add_diag_rows(M, vals, mesh, grad=False):
-    """M (q, nb, n) plus vals (q, nb) on my rows' global diagonal."""
-    nb = M.shape[1]
-    rows = _rows(mesh, nb)
-    if grad:
-        eye = _eye_rows(mesh.index(AXIS), nb, M.shape[-1], M.dtype,
-                        M.device)
-        return M + vals[:, :, None] * eye
+def _add_diag_rows(M, vals, mesh):
+    """M (q, nb, n) plus vals (q, nb) on my rows' global diagonal, in
+    place."""
+    rows = _rows(mesh, M.shape[1])
     M[:, :, rows].diagonal(dim1=-2, dim2=-1).add_(vals)
     return M
 
@@ -458,28 +390,27 @@ def _local_gram_grads(xs, mask, lLmb, lLmb0, lnug, Cbar, *, mesh, kernel):
 # ---------------------------------------------------------------------------
 
 def _full_fwd_local(xs, mask, a, lLmb, lLmb0, lnug, D, *, mesh, jitter,
-                    kernel, compute_dtype, grad=False):
+                    kernel, compute_dtype):
     """A rank's forward on its components: its Gram rows, the distributed
     factor and solve, the per-component terms.  Returns (terms (q,) f64,
     alike on the 'n' ranks; LB rows; w rows).  ``a`` (q, n) whole."""
     C = _local_gram_rows(xs, mask, lLmb, lLmb0, lnug, mesh=mesh,
-                         kernel=kernel, compute_dtype=compute_dtype,
-                         grad=grad)
+                         kernel=kernel, compute_dtype=compute_dtype)
     nb = C.shape[1]
     rows = _rows(mesh, nb)
     Dm = D.to(C.dtype)
-    B = Dm[:, None, None] * C if grad else C.mul_(Dm[:, None, None])
+    B = C.mul_(Dm[:, None, None])
     # padded rows keep a unit diagonal
     diag_vals = (1.0 + jitter * mask[rows]).to(C.dtype)
-    B = _add_diag_rows(B, diag_vals.expand(B.shape[0], nb), mesh, grad)
-    LB = _dist_cholesky_local(B, mesh, grad)
+    B = _add_diag_rows(B, diag_vals.expand(B.shape[0], nb), mesh)
+    LB = _dist_cholesky_local(B, mesh)
     a_blk = a[:, rows].to(LB.dtype)
-    w = _dist_cho_solve_vec_local(LB, a_blk, mesh, grad)
+    w = _dist_cho_solve_vec_local(LB, a_blk, mesh)
     # C w = (a - (1+jitter) w) / D from B w = a, as the one-device loss
     Cw = (a_blk - (1.0 + jitter) * w) / Dm[:, None].to(LB.dtype)
     quad = mesh.all_reduce(torch.sum((a_blk * Cw).to(torch.float64), dim=-1),
-                           AXIS, grad=grad)
-    logdet = _dist_chol_logdet_local(LB, mesh, grad)
+                           AXIS)
+    logdet = _dist_chol_logdet_local(LB, mesh)
     return 0.5 * logdet - 0.5 * quad, LB, w
 
 
@@ -560,40 +491,29 @@ class _FullTermsNSharded(torch.autograd.Function):
         return (None,) * 6 + (abar.to(a.dtype), glens, gamp, gnug, None)
 
 
-def _full_terms_raw(mesh, jitter, kernel, compute_dtype, xs, mask, a, lLmb,
-                    lLmb0, lnug, D):
-    """The same terms WITHOUT the custom backward: autograd runs through
-    the unrolled distributed factorization and the differentiable
-    collectives, every panel step's intermediates saved.  Exists only for
-    the memory A/B (``tests/test_torch_nshard.py``)."""
-    a, lLmb, lLmb0, lnug = mesh.enter(a, lLmb, lLmb0, lnug)
-    qs = _comps(mesh, lLmb0.shape[0])
-    terms, _, _ = _full_fwd_local(
-        xs, mask, a[qs], lLmb[qs], lLmb0[qs], lnug[qs], D[qs], mesh=mesh,
-        jitter=jitter, kernel=kernel, compute_dtype=compute_dtype, grad=True)
-    if _qax(mesh):
-        terms = mesh.all_gather(terms, COMP, grad=True).reshape(-1)
-    return mesh.leave(terms)
+def _n_pad(mesh, n: int) -> int:
+    """n padded up to a multiple of the 'n' size."""
+    return -(-n // _n_size(mesh)) * _n_size(mesh)
 
 
-def _padded_inputs(mesh, xs, n_pad):
-    n = xs.shape[0]
+def _padded_inputs(xs, n_pad: int):
+    """xs padded to n_pad rows (fill 0.5) and its row mask (1 on the real
+    rows, 0 on the padding)."""
     return (_pad_to(xs, n_pad, axis=0, fill=0.5),
-            _pad_to(xs.new_ones(n), n_pad, axis=0))
+            _pad_to(xs.new_ones(xs.shape[0]), n_pad, axis=0))
 
 
 def _full_inputs(free, data, mesh):
-    """The padded inputs of the full terms, the (p,) log-variances and n."""
-    ndev = _n_size(mesh)
-    n = data.xs.shape[0]
-    n_pad = -(-n // ndev) * ndev
+    """The padded inputs of the full terms and the (p,) log-variances and
+    variances."""
+    n_pad = _n_pad(mesh, data.xs.shape[0])
     qp = _q_pad(mesh, data.phi.shape[1])
     lLmb, lLmb0, lsig_g, lnug = Pm.constrain(free)
     lsig = Pm.expand_sigma(lsig_g, data.sigma_map)
     sigma = torch.exp(lsig)
     psi_c = data.phi / torch.sqrt(sigma)[:, None]            # (p, q)
     a = (data.ys.T @ psi_c).T                                # (q, n)
-    xs, mask = _padded_inputs(mesh, data.xs, n_pad)
+    xs, mask = _padded_inputs(data.xs, n_pad)
     a = _pad_q(_pad_to(a, n_pad, axis=1), qp)
     lLmb, lLmb0, lnug = _pad_q_params(mesh, lLmb, lLmb0, lnug)
     D = _pad_q(data.diag_D, qp, fill=1.0)   # D = 1 keeps padded B = C + I PD
@@ -602,26 +522,21 @@ def _full_inputs(free, data, mesh):
 
 def neglpost_full_nsharded(free: Pm.FreeParams, data: lik.FullData,
                            mesh: Mesh, compute_dtype=None,
-                           jitter: float = 0.0, kernel: str = 'matern32',
-                           _custom_vjp: bool = True):
+                           jitter: float = 0.0, kernel: str = 'matern32'):
     """The full-data loss with the n axis sharded over the mesh: the value
     of ``likelihood.neglpost_full`` (not divided by n), alike on every rank.
     n is padded to a multiple of the 'n' size with loss-neutral rows (C
     zeroed, unit diagonal, zero data weight); on a ('comp','n') mesh q is
-    padded to a multiple of the 'comp' size.  ``_custom_vjp=False``
-    differentiates through the unrolled factorization (the memory A/B
-    only).  A collective."""
+    padded to a multiple of the 'comp' size.  A collective."""
     q = data.phi.shape[1]
     n = data.xs.shape[0]
     inputs, lsig, sigma = _full_inputs(free, data, mesh)
-    if _custom_vjp and torch.is_grad_enabled():
+    if torch.is_grad_enabled():
         terms = _FullTermsNSharded.apply(mesh, jitter, kernel, compute_dtype,
                                          *inputs)
-    elif _custom_vjp:
+    else:
         terms = _full_terms_fwd(mesh, jitter, kernel, compute_dtype,
                                 *inputs)[0]
-    else:
-        terms = _full_terms_raw(mesh, jitter, kernel, compute_dtype, *inputs)
     nlp = torch.sum(terms[:q]).to(data.ys.dtype)
     nlp = nlp + 0.5 * n * torch.sum(lsig)
     return nlp + 0.5 * torch.sum(torch.square(data.ys
@@ -633,13 +548,12 @@ def neglpost_full_nsharded(free: Pm.FreeParams, data: lik.FullData,
 # ---------------------------------------------------------------------------
 
 def _rep_fwd_local(xs, mask, lam, jit_q, b, lLmb, lLmb0, lnug, *, mesh,
-                   kernel, compute_dtype, grad=False):
+                   kernel, compute_dtype):
     """Rep-path forward on the rank's components: its rows of
     A = C + diag(lam + jit), the distributed factor and solve, the terms.
     Returns (terms, LT rows, u rows, Cu rows)."""
     C = _local_gram_rows(xs, mask, lLmb, lLmb0, lnug, mesh=mesh,
-                         kernel=kernel, compute_dtype=compute_dtype,
-                         grad=grad)
+                         kernel=kernel, compute_dtype=compute_dtype)
     nb = C.shape[1]
     rows = _rows(mesh, nb)
     mrow = mask[rows]
@@ -647,15 +561,15 @@ def _rep_fwd_local(xs, mask, lam, jit_q, b, lLmb, lLmb0, lnug, *, mesh,
     diag_vals = torch.where(mrow[None, :] > 0,
                             lam[:, rows].to(C.dtype) + jit_q.to(C.dtype),
                             torch.ones((), dtype=C.dtype, device=C.device))
-    A = _add_diag_rows(C, diag_vals, mesh, grad)
-    LT = _dist_cholesky_local(A, mesh, grad)
+    A = _add_diag_rows(C, diag_vals, mesh)
+    LT = _dist_cholesky_local(A, mesh)
     b_blk = b[:, rows].to(LT.dtype)
     lb = lam[:, rows].to(LT.dtype) * b_blk
-    u = _dist_cho_solve_vec_local(LT, lb, mesh, grad)
+    u = _dist_cho_solve_vec_local(LT, lb, mesh)
     Cu = lb - diag_vals.to(LT.dtype) * u                       # (S b) rows
     quad = mesh.all_reduce(torch.sum((b_blk * Cu).to(torch.float64), dim=-1),
-                           AXIS, grad=grad)
-    logdet = _dist_chol_logdet_local(LT, mesh, grad)
+                           AXIS)
+    logdet = _dist_chol_logdet_local(LT, mesh)
     return -0.5 * quad + 0.5 * logdet, LT, u, Cu
 
 
@@ -706,10 +620,9 @@ class _RepTermsNSharded(torch.autograd.Function):
 
 def _rep_inputs(free, data, mesh, jitter):
     """The padded inputs of the rep terms and the diagonal data terms."""
-    ndev = _n_size(mesh)
     n = data.xs.shape[0]
     p = data.ybar.shape[0]
-    n_pad = -(-n // ndev) * ndev
+    n_pad = _n_pad(mesh, n)
     lLmb, lLmb0, lsig_g, lnug = Pm.constrain(free)
     lsig = Pm.expand_sigma(lsig_g, data.sigma_map)
     sigma_raw = torch.exp(lsig)
@@ -728,7 +641,7 @@ def _rep_inputs(free, data, mesh, jitter):
     nlp = nlp + 0.5 * torch.sum(torch.log(D[:, None] * r[None, :]))
     # the amplitude-scaled jitter of likelihood._rep_terms_impl
     jit_q = jitter * (1.0 + lLmb0[:, None])                    # (q, 1)
-    xs, mask = _padded_inputs(mesh, data.xs, n_pad)
+    xs, mask = _padded_inputs(data.xs, n_pad)
     qp = _q_pad(mesh, data.phi.shape[1])
     b = _pad_q(_pad_to(b, n_pad, axis=1), qp)
     # padded components and rows: lam 1, so A = C + I stays well posed
@@ -855,7 +768,7 @@ def predict_nsharded_core(free: Pm.FreeParams, data, aux: NShardAux, x0s,
         lLmb, lLmb0, _, lnug = Pm.constrain(free)
         lLmb_p, lLmb0_p, lnug_p = _pad_q_params(mesh, lLmb, lLmb0, lnug)
         qs = _comps(mesh, lLmb0_p.shape[0])
-        xs, mask = _padded_inputs(mesh, data.xs, n_pad)
+        xs, mask = _padded_inputs(data.xs, n_pad)
         rows = _rows(mesh, aux.L.shape[1])
         c0 = gram_stack(x0s, xs[rows], lLmb_p[qs], lLmb0_p[qs], lnug_p[qs],
                         same=False, compute_dtype=compute_dtype,

@@ -68,21 +68,15 @@ def compute_dtype_of(name):
 
 
 def loss_fn(spec, mesh, data, *, compute_dtype=None, jitter=0.0,
-            kernel='matern32', custom_vjp=True):
+            kernel='matern32'):
     """``loss(free)`` of the mesh's module for the data."""
     cd = compute_dtype_of(compute_dtype)
     if spec[0] == 'co':
         return mesh_mod.make_sharded_loss(mesh, data, compute_dtype=cd,
                                           jitter=jitter, kernel=kernel)
-    if isinstance(data, lik.RepData):
-        return nshard.make_loss('rep', data, mesh, compute_dtype=cd,
-                                jitter=jitter, kernel=kernel)
-
-    def loss(free):
-        return nshard.neglpost_full_nsharded(
-            free, data, mesh, compute_dtype=cd, jitter=jitter,
-            kernel=kernel, _custom_vjp=custom_vjp)
-    return loss
+    sub = 'rep' if isinstance(data, lik.RepData) else 'full'
+    return nshard.make_loss(sub, data, mesh, compute_dtype=cd, jitter=jitter,
+                            kernel=kernel)
 
 
 def loss_and_grad(spec, data, free, *, device='cpu', **kw):
@@ -205,31 +199,26 @@ def fitc_aux_and_predict(spec, data, free, z, x0s, *, device='cpu'):
 
 
 def saved_bytes(spec, data, free, *, device='cpu'):
-    """Bytes autograd saves for the backward during one forward of the
-    n-sharded full loss, with the custom backward and without it, and the
-    gradient of each."""
+    """The bytes autograd saves for the backward during one forward of the
+    n-sharded full loss (``saved``), the loss and the gradient of each free
+    leaf."""
     mesh = make(spec, device)
     if not mesh.member:
         return None
     d = data_of(data, device)
-    out = {}
-    for name, custom in (('custom', True), ('raw', False)):
-        total = [0]
+    total = 0
 
-        def pack(t):
-            total[0] += t.numel() * t.element_size()
-            return t
+    def pack(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
 
-        leaves = Pm.FreeParams(*(t.requires_grad_(True)
-                                 for t in free_of(free, device)))
-        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            v = nshard.neglpost_full_nsharded(leaves, d, mesh,
-                                              _custom_vjp=custom)
-        out[name] = total[0]
-        out[f'grad_{name}'] = [host(g)
-                               for g in torch.autograd.grad(v, leaves)]
-        out[f'loss_{name}'] = float(v.detach())
-    return out
+    leaves = Pm.FreeParams(*(t.requires_grad_(True)
+                             for t in free_of(free, device)))
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        v = nshard.neglpost_full_nsharded(leaves, d, mesh)
+    return dict(saved=total, loss=float(v.detach()),
+                grad=[host(g) for g in torch.autograd.grad(v, leaves)])
 
 
 # ---------------------------------------------------------------------------
