@@ -41,9 +41,12 @@ Phases, each printing its own lines:
 6. training at config 4 from the data-driven init: one loss+grad
    evaluation timed and checked against the plain kernels' gradient and
    central differences, then ``fit(method='scipy', maxiter=20)``, counting
-   K1 and K2 launches (one each per evaluation), the peak memory, the
-   held-out RMSE of the short fit and a profile of one loss+grad
-   evaluation;
+   K1 and K2 launches (one each per evaluation) and the factor's and
+   B^-1's paths (every call blocked), the peak memory, the held-out RMSE
+   of the short fit and a profile of one loss+grad evaluation; then B^-1
+   and the factor of B timed alone (``time_inverse``, ``time_cholesky``:
+   the blocked forms against cuSOLVER's, each beside its bound, and the
+   factor's residual at the init and at the committed fit);
 7. rep serving at BASELINE config 5 (1000 unique sites x 10 replicates,
    p=3, q=3, d=4) with its fitted parameters in ``benchmarks/``: ``loss()``,
    the aux and ``predict`` at 400 held-out points on the card against the
@@ -1414,6 +1417,73 @@ def time_inverse(m):
         f"{lib:.3f} ms (max diff {rel:.3e} of max |B^-1|)")
 
 
+def time_cholesky(m, frees):
+    """The factor of the loss's B, at each (label, free parameters) of
+    ``frees``, for the first 10 components ((10, 4096, 4096) at config 4,
+    the benchmark's chunk at ``q_chunk`` 10), in f64 and f32; CUDA-event
+    medians of 3: ``linalg.cholesky`` in B's storage (``overwrite=True``,
+    as the loss calls it) and on a copy, one batched
+    ``torch.linalg.cholesky_ex`` and one ``cholesky_ex`` call a matrix,
+    against the bound of n^3/3 flops a
+    component at the f64 peak; then the normwise residual
+    ||L L^T - B||_F / ||B||_F, worst component, of the blocked factor and
+    of ``cholesky_ex``.  Checks that every timed ``linalg.cholesky`` call
+    took the blocked path and, in f64, that its residual stays within 10x
+    of ``cholesky_ex``'s."""
+    import torch
+    from lcgp_tpu_torch.ops import linalg
+    from lcgp_tpu_torch.ops.gram import gram_factor_target
+
+    def residual(L, B):
+        L, B = L.double(), B.double()
+        B = torch.tril(B) + torch.tril(B, -1).mT
+        r = torch.linalg.matrix_norm(L @ L.mT - B) / torch.linalg.matrix_norm(B)
+        return float(r.max())
+
+    qc = min(m.q, 10)
+    paths = (linalg.cholesky.blocked, linalg.cholesky.dense)
+    for label, free in frees:
+        ls, amp, nug, D, _ = loss_operands(m, free)
+        dv = torch.full((qc, m.n), 1.0 + m._jitter, dtype=D.dtype,
+                        device=D.device)
+        B64 = gram_factor_target(m.x, ls[:qc], amp[:qc], nug[:qc],
+                                 row_scale=D[:qc], diag_vec=dv,
+                                 kind=m.kernel)
+        for B in (B64, B64.float()):
+            bound = qc * m.n ** 3 / 3 / F64_PEAK * 1e3
+            work = torch.empty_like(B)
+            copy = cuda_ms(lambda: work.copy_(B), reps=3)
+            inplace = cuda_ms(lambda: linalg.cholesky(work.copy_(B),
+                                                      overwrite=True),
+                              reps=3) - copy
+            ours = cuda_ms(lambda: linalg.cholesky(B), reps=3)
+            lib = cuda_ms(lambda: torch.linalg.cholesky_ex(B), reps=3)
+            one = cuda_ms(lambda: [torch.linalg.cholesky_ex(b) for b in B],
+                          reps=3)
+            L = linalg.cholesky(B)
+            L_lib = torch.linalg.cholesky_ex(B)[0]
+            r_ours, r_lib = residual(L, B), residual(L_lib, B)
+            del L, L_lib, work
+            say(f"  factor of B at the {label} ({tuple(B.shape)}, "
+                f"{str(B.dtype).replace('torch.', '')}): blocked in B's "
+                f"storage {inplace:.3f} ms ({bound / inplace:.1%} of the "
+                f"{bound:.3f} ms bound), on a copy {ours:.3f} ms, "
+                f"cholesky_ex batched {lib:.3f} ms ({bound / lib:.1%}), one "
+                f"matrix a call {one:.3f} ms ({bound / one:.1%}); residual "
+                f"||LL^T - B|| / ||B|| blocked {r_ours:.3e}, cholesky_ex "
+                f"{r_lib:.3e}")
+            if B.dtype == torch.float64:
+                check(r_ours <= 10 * max(r_lib, 1e-16), f"the blocked "
+                      f"factor's residual {r_ours:.3e} at the {label} is "
+                      f"over 10x cholesky_ex's {r_lib:.3e}")
+        del B64, B
+    paths = (linalg.cholesky.blocked - paths[0],
+             linalg.cholesky.dense - paths[1])
+    say(f"  linalg.cholesky calls timed (blocked, dense): {paths}")
+    check(paths[0] > 0 and paths[1] == 0, "expected every linalg.cholesky "
+          "call at the loss's chunk blocked")
+
+
 def phase_train(dev, x, y, xte, ytrue):
     """Phase 6: training at config 4 from the data-driven init.  Returns
     the K1 and K2 launch counts of the fit and the (K1, K2) launches of one
@@ -1437,6 +1507,7 @@ def phase_train(dev, x, y, xte, ytrue):
     flat = Flattener(m.free)
     vg = value_and_grad(loss_fn, flat)
     z0 = flat.ravel(m.free).cpu().numpy()
+    free_init = type(m.free)(*(v.detach().clone() for v in m.free))
 
     # one loss+grad evaluation as scipy sees it (host value and gradient)
     torch.cuda.synchronize()
@@ -1505,11 +1576,14 @@ def phase_train(dev, x, y, xte, ytrue):
     matern32_gram.launches = 0
     matern32_gram_vjp.launches = 0
     inv_paths = (linalg.chol_inverse.blocked, linalg.chol_inverse.dense)
+    chol_paths = (linalg.cholesky.blocked, linalg.cholesky.dense)
     t0 = time.perf_counter()
     m.fit(method="scipy", maxiter=20)
     fit_s = sync_s(t0)
     inv_paths = (linalg.chol_inverse.blocked - inv_paths[0],
                  linalg.chol_inverse.dense - inv_paths[1])
+    chol_paths = (linalg.cholesky.blocked - chol_paths[0],
+                  linalg.cholesky.dense - chol_paths[1])
     # the wrapper and m form a reference cycle, which would keep m and
     # the aux it builds below alive past this phase
     del m._loss_fn
@@ -1529,6 +1603,9 @@ def phase_train(dev, x, y, xte, ytrue):
     say(f"  chol_inverse calls in the fit (blocked, dense): {inv_paths}")
     check(inv_paths == (chunks * res.nfev, 0), "expected every chol_inverse "
           f"call blocked, {chunks} an evaluation")
+    say(f"  linalg.cholesky calls in the fit (blocked, dense): {chol_paths}")
+    check(chol_paths == (chunks * res.nfev, 0), "expected every "
+          f"linalg.cholesky call blocked, {chunks} an evaluation")
     check(bool(torch.isfinite(torch.stack(losses)).all()),
           "a loss in the fit was not finite")
     check(res.fun < l_init, "the fit did not lower the loss")
@@ -1549,6 +1626,11 @@ def phase_train(dev, x, y, xte, ytrue):
     check(np.isfinite(rmse), "RMSE not finite")
     profile_device("one loss+grad evaluation", lambda: vg(z_fit), 10)
     time_inverse(m)
+    from lcgp_tpu_torch.convert import free_params_from_numpy
+    with np.load(FITTED, allow_pickle=False) as z:
+        fitted = free_params_from_numpy(*(z[k] for k in (
+            "lLmb", "lLmb0", "lsigma2s", "lnugGPs")), dev)
+    time_cholesky(m, [("init", free_init), ("committed fit", fitted)])
     return k1_fit, k2_fit, per_eval, rmse
 
 

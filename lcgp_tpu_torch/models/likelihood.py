@@ -85,12 +85,15 @@ def _bmv(mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
 
 def _factor(B: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Cholesky of the factorization target; under 'mixed' ('mixed:N' for
-    N refinement steps) an f32 factor refined to f64 grade."""
+    N refinement steps) an f32 factor refined to f64 grade.  The caller
+    gives B up under 'high' and 'fast', whose solves do not read it: the
+    factor may then be formed in B's storage, to save a (qc, n, n)
+    buffer.  'mixed' keeps B for its refined solves."""
     steps = mixed_ops.parse_refine(compute_dtype)
     if steps is not None:
         return mixed_ops.cholesky_mixed(B, refine_steps=steps,
                                         seed_jitter=1e-6)
-    return linalg.cholesky(B)
+    return linalg.cholesky(B, overwrite=True)
 
 
 def _factor_solve_vec(L: torch.Tensor, B: torch.Tensor, v: torch.Tensor,

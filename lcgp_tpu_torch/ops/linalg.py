@@ -1,12 +1,11 @@
 """Batched Cholesky primitives (counterpart of ``lcgp_tpu/ops/linalg.py``).
 
-Thin ``torch.linalg`` wrappers over a leading component/batch axis.  The
-JAX package's blocked f64 Cholesky exists only to route around the TPU's
-emulated f64; on a GPU it is a cuSOLVER call.  The triangular inverse and
-B^{-1} are blocked from two 512-blocks up, in gemms that follow the
-operands' triangles.  The structured triangular products at the end
-(syrk, trmm, ...) are ported with their 512-blocking: the mixed-precision
-refinement (``ops/mixed.py``) is made of them.
+Thin ``torch.linalg`` wrappers over a leading component/batch axis.  From
+two 512-blocks up, the factor (outside autograd), the triangular inverse
+and B^{-1} are blocked, in place, in gemms that follow the operands'
+triangles; below, they are single cuSOLVER/cuBLAS calls.  The structured triangular
+products at the end (syrk, trmm, ...) are ported with their 512-blocking:
+the mixed-precision refinement (``ops/mixed.py``) is made of them.
 """
 from __future__ import annotations
 
@@ -22,22 +21,41 @@ def add_diag(mats: torch.Tensor, vals) -> torch.Tensor:
     return out
 
 
-def cholesky(mats: torch.Tensor) -> torch.Tensor:
-    """Batched lower Cholesky.
+def cholesky(mats: torch.Tensor, overwrite: bool = False) -> torch.Tensor:
+    """Batched lower Cholesky; only the lower triangle of ``mats`` is read,
+    and the factor's strict upper triangle is zero.
 
     Keeps the JAX contract for a matrix that is not positive definite: the
     lower triangle of its factor comes back NaN, and nothing raises.
     ``torch.linalg.cholesky`` would raise instead, and on CUDA would
-    synchronise with the host to find out.  The mask is written in place,
-    except where autograd records the factor (the FITC losses
-    differentiate through their (m, m) factors), which needs it intact."""
-    L, info = torch.linalg.cholesky_ex(mats, check_errors=False)
+    synchronise with the host to find out.
+
+    From two blocks up (n >= ``_BLOCKED_MIN_N``), in f64 or f32, and where
+    autograd does not record the input, the factor is the blocked
+    right-looking form of ``_cholesky_blocked_`` (its n^3/3 flops in
+    gemms), formed in one (..., n, n) buffer: with ``overwrite=True``, for
+    a caller that gives the input up, the input's own storage (when it is
+    contiguous), otherwise a copy.  Below, or under autograd (the FITC
+    losses differentiate through their (m, m) factors): one
+    ``cholesky_ex`` call, whose NaN mask is written in place except where
+    autograd records the factor.  The counters ``cholesky.blocked`` and
+    ``.dense`` count the calls that took each path."""
     n = mats.shape[-1]
-    lower = torch.ones((n, n), dtype=torch.bool, device=mats.device).tril_()
-    mask = (info > 0)[..., None, None] & lower
-    if L.requires_grad:
-        return L.masked_fill(mask, float('nan'))
-    return L.masked_fill_(mask, float('nan'))
+    if (n < _BLOCKED_MIN_N or mats.dtype not in _CHOL_BLOCKED_DTYPES
+            or (torch.is_grad_enabled() and mats.requires_grad)):
+        _CHOLESKY.dense += 1
+        L, info = torch.linalg.cholesky_ex(mats, check_errors=False)
+        lower = torch.ones((n, n), dtype=torch.bool,
+                           device=mats.device).tril_()
+        mask = (info > 0)[..., None, None] & lower
+        if L.requires_grad:
+            return L.masked_fill(mask, float('nan'))
+        return L.masked_fill_(mask, float('nan'))
+    _CHOLESKY.blocked += 1
+    buf = (mats if overwrite and mats.is_contiguous()
+           else mats.clone(memory_format=torch.contiguous_format))
+    _cholesky_blocked_(buf.view(-1, n, n))
+    return buf
 
 
 def chol_logdet(chols: torch.Tensor) -> torch.Tensor:
@@ -121,7 +139,9 @@ def chol_inverse(chols: torch.Tensor, overwrite: bool = False
 
 # the path counters; the bodies reach them through these private names,
 # so that a wrapper put in place of the module's attribute still counts
-_CHOL_INVERSE, _TRI_INVERSE_LOWER = chol_inverse, tri_inverse_lower
+_CHOLESKY, _CHOL_INVERSE, _TRI_INVERSE_LOWER = (cholesky, chol_inverse,
+                                                tri_inverse_lower)
+cholesky.blocked = cholesky.dense = 0
 chol_inverse.blocked = chol_inverse.dense = 0
 tri_inverse_lower.blocked = tri_inverse_lower.dense = 0
 
@@ -134,10 +154,11 @@ def _tri_inverse_solve(chols: torch.Tensor) -> torch.Tensor:
                                          upper=False, left=True)
 
 
-# The blocked forms of L^{-1} and B^{-1} (counterparts of lcgp_tpu's
-# tri_inverse_lower/_tri_inverse_combine and gram_tri_lower).  Both work
-# in place on one (b, n, n) buffer over _TRI_INV_BLOCK-blocks; what else
-# they allocate is (b, nb, nb).  An n that is not a block multiple ends in
+# The blocked forms of L, L^{-1} and B^{-1} (counterparts of lcgp_tpu's
+# cholesky_blocked, tri_inverse_lower/_tri_inverse_combine and
+# gram_tri_lower).  Each works in place on one (b, n, n) buffer over
+# _TRI_INV_BLOCK-blocks; what else they allocate is (b, nb, nb), and the
+# factor's panel (b, n - e, nb).  An n that is not a block multiple ends in
 # one narrower block (no zero padding, which would take a padded copy and
 # a contiguous copy of its slice).
 #
@@ -150,8 +171,63 @@ _TRI_INV_BLOCK = 512
 _BLOCKED_MIN_N = 2 * _TRI_INV_BLOCK
 
 
+# The blocked factor against one batched cholesky_ex at (10, 4096, 4096)
+# on an H100 (700 W): f64 15.8 against 36.4 ms, f32 16.5 against 27.9
+# (PERF.md), so both dtypes take it.
+_CHOL_BLOCKED_DTYPES = (torch.float64, torch.float32)
+
+
 def _block_bounds(n: int, nb: int) -> list[int]:
     return list(range(0, n, nb)) + [n]
+
+
+def _cholesky_blocked_(X: torch.Tensor) -> torch.Tensor:
+    """Overwrite symmetric X (b, n, n), of which only the lower triangle is
+    read, with its lower Cholesky factor and return it.
+
+    Right-looking over the blocks [s, e): the diagonal block is factored
+    by one batched ``cholesky_ex``; the panel below it becomes
+    ``X[e:, s:e] L_kk^{-T}``, one bmm by the block's inverse (a solve
+    against a block-sized I); then each block column j of the trailing
+    matrix takes ``X[sj:, sj:ej] -= panel[sj:] panel[sj:ej]^T``, one
+    in-place baddbmm into its lower strip, n^3/3 flops in all.  The strict
+    upper triangle is zeroed.  A matrix whose ``info`` is positive at any
+    step comes back with its whole lower triangle NaN, flagged on the
+    device: nothing synchronises with the host.
+
+    On an H100 (700 W) at (10, 4096, 4096) f64: the batched factor of a
+    (10, 512, 512) block took 0.71 ms, one matrix at a time 2.23; the first
+    panel by the inverse 0.49 + 0.33 ms, by a batched triangular solve
+    1.39 (the whole factor 15.8 against 17.6 ms, with the same residual).
+    Smaller blocks, or the diagonal block factored blocked in turn, were
+    no faster (PERF.md)."""
+    n = X.shape[-1]
+    b = _block_bounds(n, _TRI_INV_BLOCK)
+    bad = torch.zeros((X.shape[0], 1, 1), dtype=torch.bool, device=X.device)
+    eye = torch.eye(_TRI_INV_BLOCK, dtype=X.dtype, device=X.device)
+    for k, (s, e) in enumerate(zip(b[:-1], b[1:])):
+        Lkk, info = torch.linalg.cholesky_ex(X[:, s:e, s:e],
+                                             check_errors=False)
+        X[:, s:e, s:e] = Lkk
+        bad |= (info > 0)[:, None, None]
+        if e == n:
+            break
+        X[:, s:e, e:].zero_()
+        inv = torch.linalg.solve_triangular(
+            Lkk, eye[:e - s, :e - s].expand_as(Lkk), upper=False)
+        panel = X[:, e:, s:e] @ inv.mT
+        X[:, e:, s:e] = panel
+        for sj, ej in zip(b[k + 1:-1], b[k + 2:]):
+            X[:, sj:, sj:ej].baddbmm_(panel[:, sj - e:],
+                                      panel[:, sj - e:ej - e].mT, alpha=-1)
+        del panel   # before the next step's, which is one block shorter
+    lower = torch.ones((_TRI_INV_BLOCK,) * 2, dtype=torch.bool,
+                       device=X.device).tril_()
+    for s, e in zip(b[:-1], b[1:]):
+        X[:, s:e, s:e].masked_fill_(bad & lower[:e - s, :e - s],
+                                    float('nan'))
+        X[:, e:, s:e].masked_fill_(bad, float('nan'))
+    return X
 
 
 def _tri_inverse_blocked_(X: torch.Tensor) -> torch.Tensor:

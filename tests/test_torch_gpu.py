@@ -527,6 +527,45 @@ def test_chol_inverse_blocked_at_the_fit_shape(dev):
     assert linalg.chol_inverse.blocked == blocked + 2
 
 
+def test_cholesky_blocked_at_the_fit_shape(dev):
+    """The factor of B at (10, 4096, 4096) f64, the loss's chunk at config
+    4, blocked: within 1e-12 of ``cholesky_ex``'s max |L|, zeros above the
+    diagonal, its normwise residual within 10x of ``cholesky_ex``'s; with
+    ``overwrite=True`` in B's own storage, holding beyond B only the
+    panel (a ninth of B at its largest) and block-sized temporaries."""
+    from lcgp_tpu_torch.ops import linalg
+    q, n = 10, 4096
+    x, _, ls, amp, nug = _inputs(dev, 92, n, 1, 8, q)
+    D = torch.linspace(0.5, 20.0, q, dtype=torch.float64, device=dev)
+    B, _ = TM.launch_matern32(x, x, ls, amp, nug, same=True, row_scale=D,
+                              diag_vec=torch.ones((q, n), dtype=torch.float64,
+                                                  device=dev))
+    ref = torch.linalg.cholesky_ex(B)[0]
+    buffer = B.numel() * B.element_size()
+    paths = (linalg.cholesky.blocked, linalg.cholesky.dense)
+    L = linalg.cholesky(B)
+    err = float((L - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-12, err
+    assert not torch.triu(L, 1).any()
+
+    def residual(F):
+        Bs = torch.tril(B) + torch.tril(B, -1).mT
+        return float((torch.linalg.matrix_norm(F @ F.mT - Bs)
+                      / torch.linalg.matrix_norm(Bs)).max())
+    assert residual(L) <= 10 * residual(ref)
+    del ref
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mine = linalg.cholesky(B, overwrite=True)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= buffer / 5, extra / buffer
+    assert mine.data_ptr() == B.data_ptr() and torch.equal(mine, L)
+    assert (linalg.cholesky.blocked, linalg.cholesky.dense) == (
+        paths[0] + 2, paths[1])
+
+
 def test_vjp_kernel_f32_at_the_mixed_operating_point(dev):
     # M = the f32 potri seed of a refined factor, alpha = D/2 in f32 and
     # w = B^{-1} a refined in f64, cast to f32: what 'mixed' hands K2

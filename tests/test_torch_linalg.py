@@ -74,3 +74,97 @@ def test_solves_match_jax():
     np.testing.assert_allclose(
         m @ TL.cho_solve_vec(L, _t(vec)).numpy()[..., None],
         vec[..., None], rtol=1e-10, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The blocked factor (n >= _BLOCKED_MIN_N, outside autograd)
+# ---------------------------------------------------------------------------
+
+_DT = {'f64': (torch.float64, np.float64, TOL),
+       'f32': (torch.float32, np.float32, dict(rtol=2e-4, atol=2e-5))}
+
+
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+@pytest.mark.parametrize('n', [1100, 2048])   # 1100: a narrower last block
+def test_cholesky_blocked_matches_jax_and_cholesky_ex(n, dtype):
+    tdt, ndt, tol = _DT[dtype]
+    m = _spd(6, q=2, n=n).astype(ndt)
+    before = (TL.cholesky.blocked, TL.cholesky.dense)
+    L = TL.cholesky(torch.as_tensor(m))
+    assert (TL.cholesky.blocked, TL.cholesky.dense) == (before[0] + 1,
+                                                        before[1])
+    assert L.dtype == tdt and L.is_contiguous()
+    assert not torch.triu(L, 1).any()
+    ref_ex = torch.linalg.cholesky_ex(torch.as_tensor(m))[0]
+    torch.testing.assert_close(L, ref_ex, **tol)
+    np.testing.assert_allclose(L.numpy(), np.asarray(JL.cholesky(
+        jnp.asarray(m))), **tol)
+
+
+@pytest.mark.parametrize('where', ['first', 'last'])
+def test_cholesky_blocked_nan_for_non_pd(where):
+    """A matrix that fails in the first or the last block: its whole lower
+    triangle NaN and zeros above, the others as cholesky_ex has them."""
+    n = 1100
+    m = _spd(7, q=3, n=n)
+    i = 0 if where == 'first' else n - 1
+    m[1, i, i] = -1.0
+    L = TL.cholesky(_t(m))
+    ref, info = torch.linalg.cholesky_ex(_t(m))
+    assert info.tolist()[1] > 0 and info.tolist()[::2] == [0, 0]
+    lower = np.tril_indices(n)
+    assert np.isnan(L[1].numpy()[lower]).all()
+    assert not torch.triu(L[1], 1).any()
+    torch.testing.assert_close(L[::2], ref[::2], **TOL)
+
+
+@pytest.mark.parametrize('dtype', ['f64', 'f32'])
+def test_cholesky_overwrite_works_in_the_input(dtype):
+    tdt, ndt, _ = _DT[dtype]
+    A = torch.as_tensor(_spd(8, q=2, n=1100).astype(ndt))
+    A0 = A.clone()
+    L = TL.cholesky(A)
+    assert torch.equal(A, A0)
+    mine = TL.cholesky(A, overwrite=True)
+    assert mine.untyped_storage().data_ptr() == A.untyped_storage().data_ptr()
+    assert torch.equal(mine, L)
+    # a strided input is factored on a copy all the same
+    S = A0.mT.contiguous().mT
+    got = TL.cholesky(S, overwrite=True)
+    assert got.untyped_storage().data_ptr() != S.untyped_storage().data_ptr()
+    assert torch.equal(got, L) and torch.equal(S, A0)
+
+
+def test_cholesky_under_autograd_takes_cholesky_ex_and_its_gradient():
+    n = 1100
+    m = _spd(9, q=2, n=n)
+    A = _t(m).requires_grad_(True)
+    before = (TL.cholesky.blocked, TL.cholesky.dense)
+    L = TL.cholesky(A)
+    assert (TL.cholesky.blocked, TL.cholesky.dense) == (before[0],
+                                                        before[1] + 1)
+    (g,) = torch.autograd.grad(TL.chol_logdet(L).sum(), A)
+
+    def f(a):
+        return jnp.sum(JL.chol_logdet(JL.cholesky(a)))
+    import jax
+    ref = np.asarray(jax.grad(f)(jnp.asarray(m)))
+    # d logdet / dA = A^{-1}: torch hands it back symmetric, JAX's blocked
+    # factor on the lower triangle that its panels read, so compare the
+    # derivatives along symmetric directions, G + G^T - diag(G)
+    def sym(G):
+        return G + np.swapaxes(G, -1, -2) - G * np.eye(n)
+    np.testing.assert_allclose(sym(g.numpy()), sym(ref), rtol=1e-9,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize('case', ['small', 'blocked', 'no_grad', 'grad'])
+def test_cholesky_counts_its_path(case):
+    n = 40 if case == 'small' else 1024
+    A = _t(_spd(10, q=2, n=n)).requires_grad_(case in ('no_grad', 'grad'))
+    before = (TL.cholesky.blocked, TL.cholesky.dense)
+    with torch.set_grad_enabled(case != 'no_grad'):
+        TL.cholesky(A)
+    blocked = case in ('blocked', 'no_grad')
+    assert (TL.cholesky.blocked - before[0],
+            TL.cholesky.dense - before[1]) == ((1, 0) if blocked else (0, 1))
